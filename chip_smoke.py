@@ -1,6 +1,6 @@
 """Drive the PyTorch port of the LIVO cycle on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--out record.json]
 
 Phases (any failure raises and the script exits nonzero; it prints no
 result line without a CUDA device):
@@ -8,13 +8,18 @@ result line without a CUDA device):
 0. device check: the card's name and power limit (nvidia-smi), then the
    CUDA kernels are built from fastlivo_tpu_torch/csrc with nvcc.
 1. kernels: each CUDA kernel against its plain PyTorch version on the
-   card, at the shapes the LIVO path gives it (bitwise), with CUDA-event
-   times for the kernel, the plain version and one PyTorch library call.
+   card (bitwise), with CUDA-event times for the kernel, the plain version
+   and one PyTorch library call. K1 `extract_windows` at the window shapes
+   of the TPU kernel; the fused `patch_sample` at every main-path form
+   (select, update on each level, the level-batched stored patches) on a
+   rendered frame's padded pyramid, with clamped, out-of-set and
+   non-finite inputs among the candidates.
 2. LIVO: bootstrap_map, then lio_scan_step (surfel) + vio_scan_step pairs
    at the flagship sizes (81,920 raw points, 65,536 budget, 2^18 arena,
    640x512 camera) on a periodic circular room trajectory with matching
    IMU samples and rendered frames. Launch counts are reset just before
-   the timed pairs and read just after.
+   the timed pairs and read just after: every patch read goes through
+   `patch_sample`, and K1 is no longer on this path.
 3. determinism: the same short sequence twice from one seed; trajectories
    and the map's counts/meta must match bitwise.
 
@@ -313,6 +318,206 @@ def phase_kernels(device):
     return rows
 
 
+# The fused patch sampler's main-path forms (models/vio.py): select reads
+# level 0 without gradients, each update iteration one level with
+# gradients, maintain the stored 12x12 patches of all levels in one launch.
+PS_PAD = 32
+PS_NS = [1, 208, 4096]
+PS_STRIDES = (1, 2, 4)
+
+
+def patch_sample_frame(device):
+    """A rendered room frame of the flagship camera and its padded pyramid
+    (704x576, 384x320, 224x192)."""
+    import torch
+
+    from fastlivo_tpu_torch.io import render
+    from fastlivo_tpu_torch.models import vio
+
+    cam = flagship_config().cam
+    rcw, pcw = Scene.frame_pose(1)
+    img = render.render_room(
+        cam, torch.as_tensor(rcw).to(device), torch.as_tensor(pcw).to(device),
+        half=8.0, floor_z=-1.5,
+    )
+    return cam, vio.pyramid_padded(img, 3)
+
+
+def patch_sample_centers(rng, n, cam):
+    """Level-0 centers and strides. First the hard cases: windows clamped
+    on each of the four sides, near-border centers, a stride outside the
+    set and non-finite centers; then random in-frame centers."""
+    w, h = cam.width, cam.height
+    edge = [
+        (-100.25, h / 2), (w + 90.5, h / 2 + 0.75), (w / 2 + 0.25, -120.5), (w / 2 - 0.5, h + 77.25),
+        (1.5, 2.25), (w - 1.25, h - 0.5), (math.nan, 100.0), (200.0, math.inf),
+    ]
+    c = rng.uniform([0.0, 0.0], [w, h], size=(n, 2))
+    s = rng.choice(PS_STRIDES, n)
+    k = min(n, len(edge))
+    c[:k] = edge[:k]
+    s[1:6:4] = 3  # not in PS_STRIDES: the lattice of PS_STRIDES[0]
+    return c.astype(np.float32), s.astype(np.int32)
+
+
+def patch_sample_cases(pyr, cam, n, seed=0):
+    """Every main-path form of `patch_sample` at n candidates: the kernel
+    call, its plain version, and the inputs (for the bound and the
+    yardstick)."""
+    import torch
+
+    from fastlivo_tpu_torch.ops import patch_sample as ps
+
+    dev = pyr[0].device
+    c_np, s_np = patch_sample_centers(np.random.default_rng(seed + n), n, cam)
+    px = torch.as_tensor(c_np).to(dev)
+    strides = torch.as_tensor(s_np).to(dev)
+    cases = [dict(
+        name="select", levels=pyr[:1], centers=[px], strides=strides, patch=8,
+        stride_set=PS_STRIDES, grads=False,
+        kernel=lambda: ps.patch_sample(pyr[0], px, strides, 8, PS_PAD),
+        plain=lambda: ps.patch_sample_plain(pyr[0], px, strides, 8, PS_PAD),
+    )]
+    for lvl in range(len(pyr)):
+        c = px / (1 << lvl)
+        gu = strides.to(torch.float32) * (2.0**lvl)
+        img = pyr[lvl]
+        cases.append(dict(
+            name=f"update_L{lvl}", levels=[img], centers=[c], strides=strides, patch=8,
+            stride_set=PS_STRIDES, grads=True,
+            kernel=lambda img=img, c=c, gu=gu: ps.patch_sample(
+                img, c, strides, 8, PS_PAD, grad_units=gu),
+            plain=lambda img=img, c=c, gu=gu: ps.patch_sample_plain(
+                img, c, strides, 8, PS_PAD, grad_units=gu),
+        ))
+    cases.append(dict(
+        name="stored", levels=pyr, centers=[px / (1 << lvl) for lvl in range(len(pyr))],
+        strides=None, patch=12, stride_set=(1,), grads=False,
+        kernel=lambda: ps.patch_sample_levels(pyr, px, 12, PS_PAD),
+        plain=lambda: ps.patch_sample_levels_plain(pyr, px, 12, PS_PAD),
+    ))
+    return cases
+
+
+def lattice_points(img, centers, strides, patch, stride_set, grads):
+    """Padded-pixel (x, y) of the top-left tap of every lattice point, each
+    (N, n_lat, n_lat) int, and the shared fraction (N, 2), from the same
+    clipped window origins as the sampler."""
+    import torch
+
+    hp, wp = img.shape
+    g = 1 if grads else 0
+    n_lat = patch + 2 * g
+    win = (n_lat - 1) * max(stride_set) + 2
+    i0 = torch.floor(centers)
+    frac = centers - i0
+    i0 = i0.to(torch.int32)
+    if strides is None:
+        strides = torch.full_like(i0[:, 0], stride_set[0])
+    org = i0 - strides[:, None] * (patch // 2 + g)
+    ou = torch.clamp(org[:, 0] + PS_PAD, 0, wp - win)
+    ov = torch.clamp(org[:, 1] + PS_PAD, 0, hp - win)
+    s_eff = torch.full_like(strides, stride_set[0])
+    for s in stride_set[1:]:
+        s_eff = torch.where(strides == s, s, s_eff)
+    r = torch.arange(n_lat, device=img.device, dtype=torch.int32)
+    x = ou[:, None, None] + s_eff[:, None, None] * r[None, None, :]
+    y = ov[:, None, None] + s_eff[:, None, None] * r[None, :, None]
+    return x.expand(-1, n_lat, -1).long(), y.expand(-1, -1, n_lat).long(), frac
+
+
+def patch_sample_bound_bytes(case):
+    """Least bytes: every image pixel some tap touches read once, the
+    candidates' inputs read once, every output written once."""
+    import torch
+
+    touched = 0
+    for img, c in zip(case["levels"], case["centers"]):
+        x, y, _ = lattice_points(
+            img, c, case["strides"], case["patch"], case["stride_set"], case["grads"]
+        )
+        mask = torch.zeros(img.shape, dtype=torch.bool, device=img.device)
+        for dy in (0, 1):
+            for dx in (0, 1):
+                mask[y + dy, x + dx] = True
+        touched += int(mask.sum())
+    n = case["centers"][0].shape[0]
+    inputs = n * (8 + (4 if case["strides"] is not None else 0) + (4 if case["grads"] else 0))
+    outputs = n * len(case["levels"]) * case["patch"] ** 2 * 4 * (3 if case["grads"] else 1)
+    return touched * 4 + inputs + outputs
+
+
+def patch_sample_library(case):
+    """The yardstick: one F.grid_sample call (bilinear, zeros padding,
+    align_corners=True) at the same lattice points, every level of the case
+    batched into one zero-padded (L, 1, H0, W0) input. Values only, no
+    gradients; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    levels = case["levels"]
+    h0, w0 = levels[0].shape
+    src = torch.zeros((len(levels), 1, h0, w0), dtype=torch.float32, device=levels[0].device)
+    grids = []
+    for lvl, (img, c) in enumerate(zip(levels, case["centers"])):
+        src[lvl, 0, : img.shape[0], : img.shape[1]] = img
+        x, y, frac = lattice_points(
+            img, c, case["strides"], case["patch"], case["stride_set"], case["grads"]
+        )
+        gx = (x + frac[:, 0, None, None]) * (2.0 / (w0 - 1)) - 1.0
+        gy = (y + frac[:, 1, None, None]) * (2.0 / (h0 - 1)) - 1.0
+        grids.append(torch.stack([gx, gy], dim=-1).reshape(x.shape[0], -1, 2))
+    grid = torch.nan_to_num(torch.stack(grids)).to(torch.float32)
+    return lambda: F.grid_sample(
+        src, grid, mode="bilinear", padding_mode="zeros", align_corners=True
+    )
+
+
+def same_bits(a, b):
+    """Bitwise equal, NaN positions included."""
+    import torch
+
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a), torch.nan_to_num(b)
+    )
+
+
+def phase_patch_sample(device):
+    """`patch_sample` against its plain version on the card at every
+    main-path form and N (bitwise, NaN positions included, one launch per
+    call), then timed beside its plain version and the grid_sample
+    yardstick."""
+    import torch
+
+    from fastlivo_tpu_torch.ops import patch_sample as ps
+
+    cam, pyr = patch_sample_frame(device)
+    rows = []
+    for n in PS_NS:
+        for case in patch_sample_cases(pyr, cam, n):
+            before = ps.LAUNCHES["patch_sample"]
+            got = case["kernel"]()
+            if ps.LAUNCHES["patch_sample"] != before + 1:
+                raise AssertionError(f"patch_sample {case['name']} n={n}: not one launch")
+            want = case["plain"]()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max(float((a.nan_to_num() - b.nan_to_num()).abs().max()) for a, b in zip(got, want))
+            if not all(a.shape == b.shape and same_bits(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"patch_sample mismatch: {case['name']} n={n}: {err}")
+            fns = dict(kernel=case["kernel"], plain=case["plain"], library=patch_sample_library(case))
+            row = dict(case=case["name"], n=n, levels=[list(img.shape) for img in case["levels"]],
+                       patch=case["patch"], grads=case["grads"], max_abs_err=err,
+                       nan_outputs=int(torch.isnan(got[0]).sum()))
+            for name, fn in fns.items():
+                row[f"{name}_ms"] = graph_time_ms(fn)
+                row[f"{name}_eager_ms"] = eager_time_ms(fn)
+            row["bound_ms"] = patch_sample_bound_bytes(case) / HBM_BYTES_PER_S * 1e3
+            rows.append(row)
+    return rows
+
+
 def _summary_np(x):
     return np.asarray(x.detach().cpu().numpy(), np.float64)
 
@@ -407,6 +612,9 @@ def finish(records):
 
 
 POS_BOUND_M = 0.10  # position vs the true trajectory, every scan and frame
+# Kernels per LIVO pair in the flagship profile before the fused sampler
+# (K1 plus the eager lattice chain; PERF.md), printed beside this run's.
+KERNELS_PER_PAIR_UNFUSED = 7309
 
 
 def check_records(records):
@@ -487,26 +695,31 @@ def phase_livo(device, n_warm=3, n_timed=20, n_profile=2):
     import torch
 
     from fastlivo_tpu_torch.ops import pallas_windows as pw
+    from fastlivo_tpu_torch.ops import patch_sample as ps
 
+    counters = (pw.LAUNCHES, ps.LAUNCHES)
     run = LivoRun(flagship_config(), Scene(n_raw=81920, imu_m=32, seed=0), device)
     warm = run.make_inputs(n_warm)
     timed_in = run.make_inputs(n_timed)
     extra = run.make_inputs(n_profile + 1)
     records = [run.pair(inp) for inp in warm]
     torch.cuda.synchronize()
-    for key in pw.LAUNCHES:
-        pw.LAUNCHES[key] = 0
+    for counter in counters:
+        for key in counter:
+            counter[key] = 0
     timed = [run.pair(inp, timed=True) for inp in timed_in]
     torch.cuda.synchronize()
-    launches = dict(pw.LAUNCHES)
+    launches = {key: c[key] for c in counters for key in c}
     records = finish(records + timed)
     check_records(records)
     if min(r["vio"][7] for r in timed) <= 0:
         raise AssertionError("n_selected is 0 on a timed pair")
-    n_k1 = launches["extract_windows"]
-    # Per frame: 1 (select) + one per update iteration (3..30) + 6 (maintain).
-    if not len(timed) * 10 <= n_k1 <= len(timed) * 37:
-        raise AssertionError(f"extract_windows launched {n_k1} times in {len(timed)} frames")
+    n_ps = launches["patch_sample"]
+    # Per frame: 1 (select) + one per update iteration (3..30) + 2 (maintain).
+    if not len(timed) * 6 <= n_ps <= len(timed) * 33:
+        raise AssertionError(f"patch_sample launched {n_ps} times in {len(timed)} frames")
+    if launches["extract_windows"] != 0:
+        raise AssertionError(f"extract_windows launched {launches['extract_windows']} times")
 
     prof = profile_pairs(run, extra[:n_profile])
     syncs = count_syncs(run, extra[n_profile])
@@ -514,6 +727,7 @@ def phase_livo(device, n_warm=3, n_timed=20, n_profile=2):
     vio_ms = [r["vio_ms"] for r in timed]
     pair_ms = float(np.median(np.add(lio_ms, vio_ms)))
     prof["device_idle_share"] = 1.0 - prof["device_ms_per_pair"] / pair_ms
+    prof["kernels_per_pair_unfused"] = KERNELS_PER_PAIR_UNFUSED
     return dict(
         lio_ms=float(np.median(lio_ms)), vio_ms=float(np.median(vio_ms)), pair_ms=pair_ms,
         lio_ms_all=lio_ms, vio_ms_all=vio_ms,
@@ -542,8 +756,14 @@ def phase_determinism(device, n_pairs=4):
     return dict(pairs=n_pairs, identical=True)
 
 
-def main():
+def main(argv=None):
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU and check it.")
+    ap.add_argument("--out", help="also write every phase's full record to this JSON file")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -559,6 +779,7 @@ def main():
                       "libraries": sorted(p.name for p in libs.values())}), flush=True)
 
     k1 = phase_kernels(device)
+    psr = phase_patch_sample(device)
 
     livo = phase_livo(device)
     print(json.dumps({"livo": livo, "gpu": ident}), flush=True)
@@ -572,7 +793,7 @@ def main():
             name="extract_windows", route="cuda",
             source="fastlivo_tpu_torch/csrc/extract_windows.cu",
             replaces="fastlivo_tpu/ops/pallas_windows.py:66",
-            launches=livo["launches"]["extract_windows"],
+            launches=livo["launches"]["extract_windows"], on_main_path=False,
             max_abs_err=r["max_abs_err"],
             ms=r["kernel_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
@@ -583,6 +804,26 @@ def main():
             eager_us=dict(kernel=r["kernel_eager_ms"] * 1e3, plain=r["plain_eager_ms"] * 1e3,
                           library=r["library_eager_ms"] * 1e3),
         ))
+    for r in psr:
+        kernels.append(dict(
+            name="patch_sample", route="cuda",
+            source="fastlivo_tpu_torch/csrc/patch_sample.cu",
+            replaces="fastlivo_tpu/ops/pallas_windows.py:66",
+            fuses="fastlivo_tpu/ops/image.py:229",
+            launches=livo["launches"]["patch_sample"], on_main_path=True,
+            max_abs_err=r["max_abs_err"],
+            ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
+            case=r["case"], n=r["n"], levels=r["levels"], patch=r["patch"], grads=r["grads"],
+            nan_outputs=r["nan_outputs"],
+            kernel_us=r["kernel_ms"] * 1e3, plain_us=r["plain_ms"] * 1e3,
+            library_us=r["library_ms"] * 1e3, bound_us=r["bound_ms"] * 1e3,
+            eager_us=dict(kernel=r["kernel_eager_ms"] * 1e3, plain=r["plain_eager_ms"] * 1e3,
+                          library=r["library_eager_ms"] * 1e3),
+        ))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"gpu": ident, "kernels": kernels, "livo": livo, "determinism": det}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,8 +20,9 @@
 // Bound. The kernel moves 2 * N * win^2 * 4 bytes (each window read once,
 // written once): 2.4 MB at N = 208, win = 38, about 0.7 us at 3.35 TB/s.
 // At the main path's sizes a launch costs more than that, so the kernel is
-// bound by launch latency. Fusing it with the bilinear lattice of
-// strided_patch_sample, or batching a frame's launches, is later work.
+// bound by launch latency. The VIO path therefore reads its patches through
+// patch_sample.cu, which fuses this copy with the bilinear lattice of
+// strided_patch_sample; this kernel stays as the TPU kernel's counterpart.
 //
 // Corners are clamped to [0, dim - win] here as well as by the caller, so
 // no start value can make the kernel read outside the image.

@@ -2,17 +2,19 @@
 of fastlivo_tpu/models/vio.py: select, photometric_update, maintain and
 vio_update; `candidate_overlay` is not ported yet).
 
-Every patch read goes through `ops.image.strided_patch_sample`, whose
-window extraction is the CUDA kernel on the GPU (csrc/extract_windows.cu):
-one launch in `select`, one per update iteration (at most 3 levels x 10)
-and six in `maintain`. The per-level `lax.while_loop` becomes a Python
+Every patch read is one launch of the fused patch-sampling kernel on the
+GPU (csrc/patch_sample.cu, through ops/patch_sample.py). Per frame:
+1 launch in `select`, one per update iteration (at most 3 levels x 10)
+and 2 in `maintain` (every pyramid level of the stored patches in one
+launch). `vio_update` builds the padded pyramid once per frame and hands
+it to the three phases. The per-level `lax.while_loop` becomes a Python
 loop that reads its `done` flag from the device once per trip.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -20,7 +22,7 @@ import torch.nn.functional as F
 from fastlivo_tpu_torch.maps import visual_map as vmap_mod
 from fastlivo_tpu_torch.models import ieskf
 from fastlivo_tpu_torch.ops import image as img_ops
-from fastlivo_tpu_torch.ops import linalg, so3
+from fastlivo_tpu_torch.ops import linalg, patch_sample, so3
 from fastlivo_tpu_torch.ops import scatter as scatter_ops
 from fastlivo_tpu_torch.ops.camera import Pinhole
 from fastlivo_tpu_torch.state import DIM_STATE, NavState, boxminus, boxplus
@@ -31,27 +33,25 @@ _R2D = 57.29577951308232
 _SAMPLE_PAD = 32
 
 
-def _pyramid_padded(img: torch.Tensor, levels: int):
+def pyramid_padded(img: torch.Tensor, levels: int) -> List[torch.Tensor]:
+    """The zero-padded pyramid every patch read samples (level 0 first)."""
     return [img_ops.pad_image(p, _SAMPLE_PAD) for p in img_ops.build_pyramid(img, levels)]
 
 
 def stored_patch_pyramid(
-    img: torch.Tensor, px: torch.Tensor, vm_cfg: vmap_mod.VisualMapConfig
+    img: torch.Tensor,
+    px: torch.Tensor,
+    vm_cfg: vmap_mod.VisualMapConfig,
+    pyr: Optional[List[torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Stored observation patches: the central stored_patch^2 texels of
-    each pyramid level at px. Returns (N, levels, S, S)."""
-    pyr = _pyramid_padded(img, vm_cfg.levels)
-    n = px.shape[0]
-    ones = torch.ones(n, dtype=torch.int32, device=px.device)
-    out = []
-    for lvl in range(vm_cfg.levels):
-        c = px / (1 << lvl)
-        out.append(
-            img_ops.strided_patch_sample(
-                pyr[lvl], c, ones, vm_cfg.stored_patch, _SAMPLE_PAD, stride_set=(1,)
-            )
-        )
-    return torch.stack(out, dim=1).reshape(n, vm_cfg.levels, vm_cfg.stored_patch, vm_cfg.stored_patch)
+    each pyramid level at px, all levels in one call. `pyr` is the padded
+    pyramid of img (built here when None). Returns (N, levels, S, S)."""
+    if pyr is None:
+        pyr = pyramid_padded(img, vm_cfg.levels)
+    return patch_sample.patch_sample_levels(
+        pyr[: vm_cfg.levels], px, vm_cfg.stored_patch, _SAMPLE_PAD
+    )
 
 
 @dataclass(frozen=True)
@@ -168,8 +168,10 @@ def select(
     t_ci: torch.Tensor,
     vm_cfg: vmap_mod.VisualMapConfig,
     cfg: VioConfig,
+    pyr: Optional[List[torch.Tensor]] = None,
 ) -> Tuple[Selection, torch.Tensor]:
-    """Phase A: one candidate per grid cell. Returns (Selection, depth_img)."""
+    """Phase A: one candidate per grid cell. Returns (Selection, depth_img).
+    `pyr` is img's padded pyramid (only level 0 is read here)."""
     dtype = img.dtype
     dev = img.device
     gw, gh = cfg.grid_dims(cam)
@@ -276,7 +278,7 @@ def select(
     ref_patch = torch.stack(refs, dim=1)
 
     # --- photometric outlier gate at the search-level stride.
-    img_pad = img_ops.pad_image(img, _SAMPLE_PAD)
+    img_pad = img_ops.pad_image(img, _SAMPLE_PAD) if pyr is None else pyr[0]
     cur_patch = img_ops.strided_patch_sample(
         img_pad, sel_uv, torch.round(scale).to(torch.int32), cfg.patch_size, _SAMPLE_PAD
     )
@@ -319,14 +321,17 @@ def photometric_update(
     rot_ci: torch.Tensor,
     t_ci: torch.Tensor,
     cfg: VioConfig,
+    pyr: Optional[List[torch.Tensor]] = None,
 ) -> Tuple[NavState, torch.Tensor, torch.Tensor]:
     """Phase B: coarse-to-fine iterated EKF with error-decrease acceptance
-    and rollback. Returns (posterior, error_before, error_after)."""
+    and rollback. `pyr` is img's padded pyramid (built here when None).
+    Returns (posterior, error_before, error_after)."""
     dtype = img.dtype
     dev = img.device
     p_inv = linalg.psd_inverse(state_prop.cov / cfg.img_point_cov)
     psz2 = cfg.patch_size**2
-    pyr = _pyramid_padded(img, cfg.levels)
+    if pyr is None:
+        pyr = pyramid_padded(img, cfg.levels)
     strides_i = torch.round(sel.scale).to(torch.int32)
 
     def residuals_and_h(rot, pos, level):
@@ -433,9 +438,11 @@ def maintain(
     t_ci: torch.Tensor,
     vm_cfg: vmap_mod.VisualMapConfig,
     cfg: VioConfig,
+    pyr: Optional[List[torch.Tensor]] = None,
 ) -> Tuple[vmap_mod.VisualMap, torch.Tensor, torch.Tensor]:
     """Phase C: new map points (best Shi-Tomasi scan point per cell) and
-    observation appends at the posterior pose. Returns (vmap, n_new, n_obs)."""
+    observation appends at the posterior pose. `pyr` is img's padded
+    pyramid (built here when None). Returns (vmap, n_new, n_obs)."""
     dev = img.device
     gw, gh = cfg.grid_dims(cam)
     rcw, pcw = camera_pose(state.rot, state.pos, rot_ci, t_ci)
@@ -476,8 +483,10 @@ def maintain(
     has = has2d.T.reshape(-1)
     new_ok = has & (w_score > sel.cell_score) & (w_score > 0.0)
 
+    if pyr is None:
+        pyr = pyramid_padded(img, vm_cfg.levels)
     new_px = uv[winner]
-    patches = stored_patch_pyramid(img, new_px, vm_cfg)
+    patches = stored_patch_pyramid(img, new_px, vm_cfg, pyr)
     vmap = vmap_mod.add_points(
         vmap, vm_cfg, scan_world[winner], w_score, patches, new_px, rcw, pcw, new_ok
     )
@@ -500,7 +509,7 @@ def maintain(
     su = torch.clamp(torch.floor(sel_uv[:, 0]).to(torch.int64), 0, w_img - 1)
     sv = torch.clamp(torch.floor(sel_uv[:, 1]).to(torch.int64), 0, h_img - 1)
     sel_score = score_map[sv, su]
-    sel_patches = stored_patch_pyramid(img, sel_uv, vm_cfg)
+    sel_patches = stored_patch_pyramid(img, sel_uv, vm_cfg, pyr)
 
     vmap = vmap_mod.add_observations(
         vmap, vm_cfg, sel.pt_idx, sel_score, sel_patches, sel_uv, rcw, pcw, add_flag
@@ -524,11 +533,17 @@ def vio_update(
     vm_cfg: vmap_mod.VisualMapConfig,
     cfg: VioConfig,
 ) -> Tuple[NavState, vmap_mod.VisualMap, VioInfo]:
-    """Full per-frame VIO: select -> update -> maintain."""
-    sel, _ = select(state_prop, vmap, img, scan_world, scan_mask, cam, rot_ci, t_ci, vm_cfg, cfg)
-    posterior, err0, err1 = photometric_update(state_prop, sel, img, cam, rot_ci, t_ci, cfg)
+    """Full per-frame VIO: select -> update -> maintain, on one padded
+    pyramid of the frame."""
+    pyr = pyramid_padded(img, max(cfg.levels, vm_cfg.levels))
+    sel, _ = select(
+        state_prop, vmap, img, scan_world, scan_mask, cam, rot_ci, t_ci, vm_cfg, cfg, pyr
+    )
+    posterior, err0, err1 = photometric_update(
+        state_prop, sel, img, cam, rot_ci, t_ci, cfg, pyr
+    )
     vmap, n_new, n_obs = maintain(
-        posterior, vmap, sel, img, scan_world, scan_mask, cam, rot_ci, t_ci, vm_cfg, cfg
+        posterior, vmap, sel, img, scan_world, scan_mask, cam, rot_ci, t_ci, vm_cfg, cfg, pyr
     )
     info = VioInfo(
         n_selected=torch.sum(sel.valid.to(torch.int32)).to(torch.int32),

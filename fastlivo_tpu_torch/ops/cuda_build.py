@@ -25,7 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # kernel library name -> source file under csrc/
-SOURCES = {"extract_windows": "extract_windows.cu"}
+SOURCES = {"extract_windows": "extract_windows.cu", "patch_sample": "patch_sample.cu"}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -13,7 +13,7 @@ from typing import List, Tuple
 import torch
 import torch.nn.functional as F
 
-from fastlivo_tpu_torch.ops import pallas_windows
+from fastlivo_tpu_torch.ops import pallas_windows, patch_sample
 
 
 def patch_grid(patch_size: int, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -58,57 +58,14 @@ def strided_patch_sample(
 ):
     """Patch (+ optional gradient) bilinear sampling on a stride lattice,
     from one contiguous window per candidate (see the JAX docstring for the
-    lattice and the padding rule).
+    lattice and the padding rule). One launch of the fused kernel for CUDA
+    tensors, its plain version for CPU tensors (ops/patch_sample.py).
 
     Returns val or (val, du, dv), each (N, patch_size^2), row-major.
     """
-    dtype = img_pad.dtype
-    half = patch_size // 2
-    g = 0 if grad_units is None else 1
-    n_lat = patch_size + 2 * g
-    max_s = max(stride_set)
-    win = (n_lat - 1) * max_s + 2
-
-    i0 = torch.floor(centers)
-    frac = (centers - i0).to(dtype)
-    i0 = i0.to(torch.int32)
-    origins = i0 - strides[:, None] * (half + g)
-    windows = extract_windows(img_pad, origins, win, pad)
-
-    fu = frac[:, 0][:, None, None]
-    fv = frac[:, 1][:, None, None]
-
-    def lattice(s: int) -> torch.Tensor:
-        span = (n_lat - 1) * s + 1
-
-        def corner(dv, du):
-            return windows[:, dv : dv + span : s, du : du + span : s]
-
-        return (
-            corner(0, 0) * (1 - fu) * (1 - fv)
-            + corner(0, 1) * fu * (1 - fv)
-            + corner(1, 0) * (1 - fu) * fv
-            + corner(1, 1) * fu * fv
-        )
-
-    lat = lattice(stride_set[0])
-    for s in stride_set[1:]:
-        lat = torch.where((strides == s)[:, None, None], lattice(s), lat)
-
-    n = centers.shape[0]
-    val = lat[:, g : g + patch_size, g : g + patch_size].reshape(n, -1)
-    if grad_units is None:
-        return val
-    inv = (1.0 / torch.clamp(grad_units, min=1e-9)).to(dtype)[:, None]
-    du = 0.5 * (
-        lat[:, g : g + patch_size, 2 : 2 + patch_size]
-        - lat[:, g : g + patch_size, 0:patch_size]
-    ).reshape(n, -1) * inv
-    dv = 0.5 * (
-        lat[:, 2 : 2 + patch_size, g : g + patch_size]
-        - lat[:, 0:patch_size, g : g + patch_size]
-    ).reshape(n, -1) * inv
-    return val, du, dv
+    return patch_sample.patch_sample(
+        img_pad, centers, strides, patch_size, pad, stride_set, grad_units
+    )
 
 
 def sample_patch_grid(patches: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:

@@ -31,6 +31,7 @@ from fastlivo_tpu_torch.maps import voxel_map as TV
 from fastlivo_tpu_torch.models import lio as TL
 from fastlivo_tpu_torch.models import pipeline as TP
 from fastlivo_tpu_torch.ops import pallas_windows as TPW
+from fastlivo_tpu_torch.ops import patch_sample as TPS
 from fastlivo_tpu_torch.ops.camera import Pinhole as TPinhole
 
 torch.set_num_threads(1)
@@ -94,14 +95,15 @@ def runs():
     tm = TP.bootstrap_map(TV.make_map(TCFG.map_cfg, device=dev), scene_mod.to_scan_input(boot, dev), ts, ti3, tz3, TCFG)
     tv = TVM.make_visual_map(TCFG.vm_cfg, device=dev)
     tout = []
-    launches = TPW.LAUNCHES["extract_windows"]
+    launches = (TPW.LAUNCHES["extract_windows"], TPS.LAUNCHES["patch_sample"])
     for (ls, vw, _), img in zip(pairs, frames):
         ts, tm, _, (wc, wm), lsum = TP.lio_scan_step(ts, tm, scene_mod.to_scan_input(ls, dev), ti3, tz3, TCFG)
         ts, tv, _, vsum = TP.vio_scan_step(
             ts, tv, scene_mod.to_scan_input(vw, dev), torch.tensor(img), wc, wm, trot, tz3, TCFG
         )
         tout.append((lsum.numpy(), vsum.numpy()))
-    assert TPW.LAUNCHES["extract_windows"] == launches  # CPU tensors never launch the kernel
+    # CPU tensors never launch a kernel
+    assert (TPW.LAUNCHES["extract_windows"], TPS.LAUNCHES["patch_sample"]) == launches
     tmaps = (convert.voxel_map_to_numpy(tm), convert.visual_map_to_numpy(tv))
     return jout, tout, jmaps, tmaps
 
