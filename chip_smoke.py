@@ -22,6 +22,18 @@ result line without a CUDA device):
    `patch_sample`, and K1 is no longer on this path.
 3. determinism: the same short sequence twice from one seed; trajectories
    and the map's counts/meta must match bitwise.
+4. CLI: `run.run_log`, the body of `python -m fastlivo_tpu_torch.run`, on
+   an 8 s generated log (24,000 points per scan, 200 Hz IMU, 640x512
+   frames at 10 Hz) with configs/avia_livo.yaml at its full widths
+   (point-to-plane LIO, 2^19 arena, 16,384 budget, visual map 40,960 x 8)
+   and only the synthetic rig's extrinsics overridden. Launch counts are
+   reset just before that run and read just after. Gates: no rejected
+   update, n_effective >= min_effective on every update, n_selected > 0
+   on every frame once the visual map has points, ATE < 0.10 m, tum.txt
+   and map.pcd read back, a second run of the first 20 scans writes the
+   same tum.txt rows bit for bit. Then a profile of two LIO steps (knn's
+   device share, kernels and host syncs per step) and a LIO-only VGICP run
+   of 20 scans (no rejection, ATE < 0.10 m).
 
 The last two lines of standard output are the kernels' JSON record and
 `{"ok": true, "device": {...}}`. The scene helpers (`Scene`) are plain
@@ -32,8 +44,10 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -661,31 +675,37 @@ def profile_pairs(run, inputs):
     )
 
 
-def count_syncs(run, inp):
-    """Host synchronizations in one LIO step and one VIO step, counted by
-    torch's sync debug mode (one warning per synchronizing call)."""
+def count_call_syncs(fn):
+    """Host synchronizations in one call (torch's sync debug mode)."""
     import warnings
 
     import torch
-
-    def syncs(caught):
-        return sum("synchroniz" in str(w.message) for w in caught)
 
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            cloud, lsum = run.lio(inp)
-        n_lio = syncs(caught)
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            vsum = run.vio(inp, cloud)
-        n_vio = syncs(caught)
+            fn()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    finish([dict(k=inp["k"], lio=lsum, vio=vsum)])
-    return dict(lio=n_lio, vio=n_vio)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def count_syncs(run, inp):
+    """Host synchronizations in one LIO step and one VIO step, counted by
+    torch's sync debug mode (one warning per synchronizing call)."""
+    out = {}
+
+    def lio():
+        out["cloud"], out["lsum"] = run.lio(inp)
+
+    def vio():
+        out["vsum"] = run.vio(inp, out["cloud"])
+
+    syncs = dict(lio=count_call_syncs(lio), vio=count_call_syncs(vio))
+    finish([dict(k=inp["k"], lio=out["lsum"], vio=out["vsum"])])
+    return syncs
 
 
 def phase_livo(device, n_warm=3, n_timed=20, n_profile=2):
@@ -756,6 +776,241 @@ def phase_determinism(device, n_pairs=4):
     return dict(pairs=n_pairs, identical=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: the CLI over a shipped configuration.
+# ---------------------------------------------------------------------------
+
+CLI_CONFIG = "configs/avia_livo.yaml"
+# A Livox Avia's 240k points/s at 10 Hz, 200 Hz IMU, the config's camera.
+CLI_LOG = dict(duration=8.0, imu_rate=200.0, scan_rate=10.0, pts_per_scan=24000,
+               n_boxes=0, seed=0, cam_rate=10.0, cam_offset=0.055)
+CLI_CAMERA = (640, 512, 431.8, 431.7, 319.5, 255.5)  # avia_livo.yaml intrinsics
+CLI_ATE_M = 0.10
+CLI_REPEAT_SCANS = 20
+CLI_PROFILE_SCAN = 15  # scan-end group of the first profiled LIO step
+
+
+def cli_rig_overrides():
+    """The synthetic rig: camera forward in the IMU frame, LiDAR at the IMU."""
+    from fastlivo_tpu_torch.io import synthetic
+
+    return {
+        "camera.rcl": tuple(synthetic.R_IC_FORWARD.T.reshape(-1).tolist()),
+        "camera.pcl": (0.0, 0.0, 0.0),
+        "extrinsics.extrinsic_r": (1, 0, 0, 0, 1, 0, 0, 0, 1),
+        "extrinsics.extrinsic_t": (0.0, 0.0, 0.0),
+    }
+
+
+def cli_config(extra=None):
+    from fastlivo_tpu_torch.utils.config import load_config
+
+    return load_config(CLI_CONFIG, {**cli_rig_overrides(), **(extra or {})})
+
+
+def write_cli_log(path, device, **sizes):
+    """The phase's log (CLI_LOG, updated by `sizes`), frames rendered on
+    `device`, written with logio. Returns the log's parameters."""
+    from fastlivo_tpu_torch.io import logio, synthetic
+    from fastlivo_tpu_torch.ops.camera import Pinhole
+
+    params = {**CLI_LOG, **sizes}
+    cam = params.pop("camera", CLI_CAMERA)
+    logio.write_sequence(path, synthetic.generate(camera=Pinhole(*cam), device=device, **params))
+    return dict(params, camera=list(cam))
+
+
+def tum_ate(path):
+    """ATE (m, no alignment) of a tum.txt against the generator's analytic
+    trajectory at the file's own stamps, and the number of poses."""
+    from fastlivo_tpu_torch.io import export, synthetic
+    from fastlivo_tpu_torch.utils.metrics import ate_rmse
+
+    stamps, pos, quat = export.read_tum(path)
+    if not (np.all(np.isfinite(pos)) and np.all(np.isfinite(quat))):
+        raise AssertionError(f"{path}: non-finite poses")
+    gt = np.stack([synthetic.default_trajectory().pos_fn(t) for t in stamps])
+    return float(ate_rmse(pos, gt)), len(stamps)
+
+
+def check_cli_run(pipe, out_dir, frames=False):
+    """The phase's gates on one run; returns (ATE, poses, map points).
+    With `frames`, the camera frames are gated too."""
+    from fastlivo_tpu_torch.io import export
+
+    if pipe.health["rejected"]:
+        raise AssertionError(f"CLI run: {pipe.health['rejected']} LIO updates rejected")
+    if not pipe.n_effective:
+        raise AssertionError("CLI run: no LIO update ran")
+    low = min(pipe.n_effective)
+    if low < pipe.step_cfg.lio_cfg.min_effective:
+        raise AssertionError(f"CLI run: n_effective {low} below min_effective")
+    if frames:
+        # Frames before the first LIO update see an empty world cloud, and
+        # the frame after it an empty visual map; every frame after those
+        # must select patches.
+        sel = pipe.n_selected
+        first = next((i for i, n in enumerate(sel) if n > 0), len(sel))
+        if first == len(sel) or min(sel[first:]) <= 0 or first > pipe.vio_before_lio + 1:
+            raise AssertionError(f"CLI run: n_selected {sel}")
+    ate, n_poses = tum_ate(os.path.join(out_dir, "tum.txt"))
+    if ate >= CLI_ATE_M:
+        raise AssertionError(f"CLI run: ATE {ate:.4f} m")
+    n_map = len(export.read_pcd(os.path.join(out_dir, "map.pcd")))
+    if n_map == 0:
+        raise AssertionError("CLI run: empty map.pcd")
+    return ate, n_poses, n_map
+
+
+def profile_call(fn):
+    """torch.profiler around one call: (kernel events, the knn range's
+    device µs), kernel events summed per name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels, knn_us = {}, 0.0
+    for e in prof.key_averages():
+        if e.key == "voxel_map.knn":
+            if e.device_type == DeviceType.CPU:
+                knn_us += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        elif e.device_type == DeviceType.CUDA:
+            us, n = kernels.get(e.key, (0.0, 0))
+            kernels[e.key] = (us + _device_us(e), n + e.count)
+    return kernels, knn_us
+
+
+def cli_profile(log, cfg, device, first=CLI_PROFILE_SCAN, n_prof=2):
+    """Replays the log through the runner's own stream into a pipeline and
+    profiles `n_prof` LIO steps from scan-end group `first` on, then counts
+    the host syncs of the next one."""
+    import torch
+
+    from fastlivo_tpu_torch import run
+    from fastlivo_tpu_torch.models.pipeline import LivoPipeline
+    from fastlivo_tpu_torch.utils.timing import StageTimer
+
+    pipe = LivoPipeline(cfg, device=device)
+    kernels, knn_us, n_scans, syncs = {}, 0.0, 0, None
+    for item in run.replay(log, cfg, pipe, StageTimer()):
+        if item is None:
+            continue
+        group, scan_input, t_abs = item
+        if not group.is_lidar_end:
+            pipe.process_image(scan_input, group.measures[-1].img.img, t_abs)
+            continue
+        n_scans += 1
+        step = lambda: pipe.process_scan(scan_input, t_abs)  # noqa: E731
+        if first <= n_scans < first + n_prof:
+            got, us = profile_call(step)
+            knn_us += us
+            for k, (t, n) in got.items():
+                kernels[k] = (kernels.get(k, (0.0, 0))[0] + t, kernels.get(k, (0.0, 0))[1] + n)
+        elif n_scans == first + n_prof:
+            syncs = count_call_syncs(step)
+            break
+        else:
+            step()
+    if syncs is None or len(pipe.n_effective) < n_prof + 1:
+        raise AssertionError(f"CLI profile: the log ended before LIO step {first + n_prof}")
+    torch.cuda.synchronize()
+    device_us = sum(t for t, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: kv[1][0], reverse=True)[:12]
+    return dict(
+        lio_steps=n_prof, first_scan=first,
+        device_ms_per_step=device_us / 1e3 / n_prof,
+        kernels_per_step=sum(n for _, n in kernels.values()) / n_prof,
+        knn_device_ms_per_step=knn_us / 1e3 / n_prof,
+        knn_share=knn_us / device_us if device_us else None,
+        host_syncs_per_step=syncs,
+        top_kernels=[dict(name=k[:90], calls=n, device_ms=t / 1e3) for k, (t, n) in top],
+    )
+
+
+def phase_cli(device, log_dir, sizes=None, extra=None):
+    """`run.run_log` on a generated log with the shipped avia_livo.yaml
+    (the CLI's path), launch counts reset just before and read just after;
+    its outputs read back and gated; a second run of the first
+    CLI_REPEAT_SCANS scans must write the same tum.txt rows bit for bit; a
+    profile of two LIO steps; and a LIO-only VGICP run of 20 scans."""
+    import torch
+
+    from fastlivo_tpu_torch import run
+    from fastlivo_tpu_torch.ops import pallas_windows as pw
+    from fastlivo_tpu_torch.ops import patch_sample as ps
+
+    log = os.path.join(log_dir, "cli.flvo")
+    t0 = time.perf_counter()
+    params = write_cli_log(log, device, **(sizes or {}))
+    log_s = time.perf_counter() - t0
+    out = {}
+
+    counters = (pw.LAUNCHES, ps.LAUNCHES)
+    for counter in counters:
+        for key in counter:
+            counter[key] = 0
+    main_dir = os.path.join(log_dir, "main")
+    t0 = time.perf_counter()
+    pipe = run.run_log(log, cli_config(extra), out_dir=main_dir, progress=False, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {key: c[key] for c in counters for key in c}
+    ate, n_poses, n_map = check_cli_run(pipe, main_dir, frames=True)
+    # After the warm-up every scan-end group is an update and every frame
+    # one VIO step: the last stages of each kind are the updates.
+    n_lio, n_vio = len(pipe.n_effective), len(pipe.n_selected)
+    lio_ms = pipe.timer.device_ms("lio_step")[-n_lio:]
+    vio_ms = pipe.timer.device_ms("vio_step")[-n_vio:]
+    n_scan_groups = len(pipe.timer.samples["lio_step"])
+    out["main"] = dict(
+        log=dict(params, seconds=log_s),
+        scans=n_scan_groups, lio_updates=n_lio, vio_updates=n_vio,
+        health=pipe.health, ate_m=ate, poses=n_poses, map_points=n_map,
+        n_effective_min=min(pipe.n_effective), n_selected=pipe.n_selected,
+        lio_step_ms=float(np.median(lio_ms)) if lio_ms else None,
+        vio_step_ms=float(np.median(vio_ms)) if vio_ms else None,
+        wall_ms_per_scan=wall_s * 1e3 / max(n_scan_groups, 1),
+        launches=launches,
+        patch_sample_per_frame=launches["patch_sample"] / max(n_vio, 1),
+    )
+
+    rep_dir = os.path.join(log_dir, "repeat")
+    run.run_log(log, cli_config(extra), out_dir=rep_dir, max_scans=CLI_REPEAT_SCANS,
+                progress=False, device=device)
+    with open(os.path.join(rep_dir, "tum.txt"), "rb") as f:
+        rep = f.read().splitlines(keepends=True)
+    with open(os.path.join(main_dir, "tum.txt"), "rb") as f:
+        full = f.read().splitlines(keepends=True)
+    if not rep or rep != full[: len(rep)]:
+        raise AssertionError("CLI repeat: tum.txt of the first scans differs from the full run's")
+    out["repeat"] = dict(scans=CLI_REPEAT_SCANS, poses=len(rep), identical=True)
+
+    if device.type == "cuda":
+        prof = cli_profile(log, cli_config(extra), device)
+        prof["device_idle_share"] = 1.0 - prof["device_ms_per_step"] / out["main"]["lio_step_ms"]
+        out["profile"] = prof
+
+    vg_dir = os.path.join(log_dir, "vgicp")
+    vg_cfg = cli_config({**(extra or {}), "lio.measurement_model": "vgicp", "vio.img_enable": 0})
+    t0 = time.perf_counter()
+    vg = run.run_log(log, vg_cfg, out_dir=vg_dir, max_scans=CLI_REPEAT_SCANS, progress=False,
+                     device=device)
+    vg_ate, vg_poses, _ = check_cli_run(vg, vg_dir)
+    vg_ms = vg.timer.device_ms("lio_step")[-len(vg.n_effective):]
+    out["vgicp"] = dict(
+        scans=CLI_REPEAT_SCANS, lio_updates=len(vg.n_effective), health=vg.health,
+        ate_m=vg_ate, poses=vg_poses, n_effective_min=min(vg.n_effective),
+        lio_step_ms=float(np.median(vg_ms)) if vg_ms else None,
+        wall_s=time.perf_counter() - t0,
+    )
+    return out
+
+
 def main(argv=None):
     import argparse
 
@@ -787,6 +1042,13 @@ def main(argv=None):
     det = phase_determinism(device)
     print(json.dumps({"determinism": det}), flush=True)
 
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as log_dir:
+        cli = phase_cli(device, log_dir)
+    print(json.dumps({"cli": cli, "gpu": ident}), flush=True)
+    cli_launches = cli["main"]["launches"]
+    if cli_launches["patch_sample"] <= 0:
+        raise AssertionError("CLI run: patch_sample was never launched")
+
     kernels = []
     for r in k1:
         kernels.append(dict(
@@ -794,6 +1056,7 @@ def main(argv=None):
             source="fastlivo_tpu_torch/csrc/extract_windows.cu",
             replaces="fastlivo_tpu/ops/pallas_windows.py:66",
             launches=livo["launches"]["extract_windows"], on_main_path=False,
+            launches_cli=cli_launches["extract_windows"],
             max_abs_err=r["max_abs_err"],
             ms=r["kernel_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
@@ -811,6 +1074,8 @@ def main(argv=None):
             replaces="fastlivo_tpu/ops/pallas_windows.py:66",
             fuses="fastlivo_tpu/ops/image.py:229",
             launches=livo["launches"]["patch_sample"], on_main_path=True,
+            launches_cli=cli_launches["patch_sample"],
+            launches_cli_per_frame=cli["main"]["patch_sample_per_frame"],
             max_abs_err=r["max_abs_err"],
             ms=r["kernel_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
@@ -823,7 +1088,8 @@ def main(argv=None):
         ))
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"gpu": ident, "kernels": kernels, "livo": livo, "determinism": det}, f, indent=1)
+            json.dump({"gpu": ident, "kernels": kernels, "livo": livo, "determinism": det, "cli": cli},
+                      f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

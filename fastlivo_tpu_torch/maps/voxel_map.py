@@ -462,6 +462,56 @@ def nearby_offsets(nearby_type: int) -> Tuple[Tuple[int, int, int], ...]:
     raise ValueError(f"nearby_type must be 0/6/18/26, got {nearby_type}")
 
 
+@torch.profiler.record_function("voxel_map.knn")  # its share in a profile
+def knn(
+    m: VoxelHashMap,
+    queries: torch.Tensor,
+    cfg: VoxelMapConfig,
+    k: int = 5,
+    max_dist2: float = 25.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """k nearest map points per query over the neighbor-voxel stencil:
+    one batched probe for the whole stencil, then one slab-row gather per
+    offset merged into a running best-k (old best first, then the new
+    candidates). The merge is a stable sort, so equal distances (the many
+    `inf` of empty slots among them) keep `lax.top_k`'s lower-index-first
+    order. Neighbor points of invalid entries are stale slab data.
+
+    Returns (neighbors (N, k, 3), d2 (N, k), valid (N, k))."""
+    n = queries.shape[0]
+    s = cfg.max_points
+    dev = queries.device
+    vox_q = voxel_coord(queries, cfg.resolution)
+
+    best_d2 = torch.full((n, k), torch.inf, dtype=queries.dtype, device=dev)
+    best_pts = torch.zeros((n, k, 3), dtype=queries.dtype, device=dev)
+
+    offs = torch.tensor(nearby_offsets(cfg.nearby_type), dtype=torch.int32, device=dev)
+    n_off = offs.shape[0]
+    vox_all = (vox_q[None, :, :] + offs[:, None, :]).reshape(-1, 3)
+    found_all, _ = probe(m, vox_all, cfg)
+    found_all = found_all.reshape(n_off, n)
+
+    slot_arange = torch.arange(s, dtype=torch.int32, device=dev)
+    for j in range(n_off):
+        found = found_all[j]
+        has = found >= 0
+        slot = torch.clamp(found, 0, cfg.capacity - 1).long()
+        cnt = torch.where(has, m.counts[slot], 0)
+        cand = m.slab[slot].reshape(n, s, 3)
+        cand_valid = slot_arange[None, :] < cnt[:, None]
+        d2 = torch.sum((cand - queries[:, None, :]) ** 2, dim=-1)
+        d2 = torch.where(cand_valid, d2, torch.inf)
+        all_d2 = torch.cat([best_d2, d2], dim=1)
+        all_pts = torch.cat([best_pts, cand], dim=1)
+        sorted_d2, order = torch.sort(all_d2, dim=1, stable=True)
+        best_d2 = sorted_d2[:, :k]
+        best_pts = torch.gather(all_pts, 1, order[:, :k, None].expand(n, k, 3))
+
+    valid = best_d2 <= max_dist2
+    return best_pts, best_d2, valid
+
+
 def slab_insert_gate(
     m: VoxelHashMap,
     pts_world: torch.Tensor,

@@ -13,10 +13,11 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from fastlivo_tpu_torch.ops import so3
-from fastlivo_tpu_torch.state import DIM_STATE, NavState
+from fastlivo_tpu_torch.state import DIM_STATE, GRAVITY_MS2, NavState
 
 
 class ImuWindow(NamedTuple):
@@ -168,3 +169,52 @@ def undistort(
     p_end_imu = (p_w - state_end.pos) @ state_end.rot
     p_end = (p_end_imu - t_il) @ rot_il
     return torch.where(mask[:, None], p_end, points)
+
+
+class StaticInitializer:
+    """Host-side static (zero-velocity) IMU initialization in NumPy:
+    accumulate samples while stationary, then gravity from the mean accel
+    direction, gyro bias from the mean rate, and the accel-norm scale
+    G / |mean_acc|."""
+
+    def __init__(self, init_count: int = 50, zero_velocity_thresh: float = 0.05):
+        self.init_count = init_count
+        self.zero_velocity_thresh = zero_velocity_thresh
+        self._acc = []
+        self._gyr = []
+        self.done = False
+        self.mean_acc = np.array([0.0, 0.0, GRAVITY_MS2])
+        self.mean_gyr = np.zeros(3)
+
+    def is_static(self, acc_batch: np.ndarray) -> bool:
+        """Zero-velocity detection: low spread of the accel norm."""
+        norms = np.linalg.norm(acc_batch, axis=-1)
+        return bool(np.std(norms) < self.zero_velocity_thresh)
+
+    def push(self, gyr: np.ndarray, acc: np.ndarray) -> bool:
+        """Feed one window of samples; returns True once initialized."""
+        if self.done:
+            return True
+        if len(self._acc) > 0 or self.is_static(acc):
+            self._acc.append(np.asarray(acc))
+            self._gyr.append(np.asarray(gyr))
+        total = sum(a.shape[0] for a in self._acc)
+        if total >= self.init_count:
+            self.mean_acc = np.concatenate(self._acc).mean(axis=0)
+            self.mean_gyr = np.concatenate(self._gyr).mean(axis=0)
+            self.done = True
+        return self.done
+
+    @property
+    def acc_scale(self) -> float:
+        return float(GRAVITY_MS2 / np.linalg.norm(self.mean_acc))
+
+    def initial_state(self, dtype=torch.float32, device=None) -> NavState:
+        """The identity state with the estimated gravity and gyro bias, on
+        `device` (None means the GPU)."""
+        st = NavState.identity(dtype, device)
+        grav = -self.mean_acc / np.linalg.norm(self.mean_acc) * GRAVITY_MS2
+        return st._replace(
+            grav=torch.tensor(grav, dtype=dtype, device=st.pos.device),
+            bg=torch.tensor(self.mean_gyr, dtype=dtype, device=st.pos.device),
+        )

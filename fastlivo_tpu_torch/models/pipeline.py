@@ -1,23 +1,30 @@
-"""The per-scan and per-frame programs of the single-device LIVO cycle
-(port of fastlivo_tpu/models/pipeline.py: `lio_scan_step` with the surfel
-model, `vio_scan_step`, `bootstrap_map`, `step_summary`).
+"""The per-scan and per-frame programs of the single-device LIVO cycle and
+the host pipeline that drives them (port of fastlivo_tpu/models/pipeline.py:
+`StepConfig` with `from_config`, `lio_scan_step` with every measurement
+model, `vio_scan_step`, `bootstrap_map`, `step_summary` and
+`LivoPipeline`).
 
 The chain per scan is the JAX package's:
 
-    IMU propagate -> undistort -> voxel downsample -> iterated surfel ESKF
-    -> health gate -> slab insert gate -> map insert
+    IMU propagate -> undistort -> voxel downsample -> iterated ESKF
+    -> health gate -> insert gate -> map insert
 
-`LivoPipeline`, `lio_scan_multi` and the multi-device branches are later
-slices (ROADMAP.md section 1, items 9 and 14).
+`lio_scan_multi`, the multi-device branches, scan batching, GNSS, loop
+closure and the annotated-frame dump are later slices (ROADMAP.md
+section 1); the pipeline raises `NotImplementedError` for each.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
+from fastlivo_tpu_torch import device as _device
+from fastlivo_tpu_torch.io import export
 from fastlivo_tpu_torch.maps import visual_map as vmap_mod
 from fastlivo_tpu_torch.maps import voxel_map as vm
 from fastlivo_tpu_torch.models import imu as imu_mod
@@ -26,6 +33,13 @@ from fastlivo_tpu_torch.models import vio as vio_mod
 from fastlivo_tpu_torch.ops import so3, voxelize
 from fastlivo_tpu_torch.ops.camera import Pinhole
 from fastlivo_tpu_torch.state import NavState
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to fastlivo_tpu_torch yet (ROADMAP.md section 1, item {item})"
+    )
+
 
 _NO_MULTI_DEVICE = (
     "multi-device steps (axis_name, map_sharded) are not ported to "
@@ -36,8 +50,7 @@ _NO_MULTI_DEVICE = (
 @dataclass(frozen=True)
 class StepConfig:
     """All static shapes/params of the per-scan program (same fields and
-    defaults as the JAX package; `from_config` comes with the config
-    module in a later slice)."""
+    defaults as the JAX package)."""
 
     map_cfg: vm.VoxelMapConfig = field(default_factory=vm.VoxelMapConfig)
     lio_cfg: lio.LioConfig = field(default_factory=lio.LioConfig)
@@ -52,6 +65,68 @@ class StepConfig:
     vio_cfg: vio_mod.VioConfig = field(default_factory=vio_mod.VioConfig)
     vm_cfg: vmap_mod.VisualMapConfig = field(default_factory=vmap_mod.VisualMapConfig)
     map_sharded: bool = False
+
+    @staticmethod
+    def from_config(cfg) -> "StepConfig":
+        """From a `utils.config.FastLivoConfig`."""
+        par = cfg.parallel
+        return StepConfig(
+            map_sharded=bool(par.n_devices > 1 and par.map_sharded),
+            cam=Pinhole.from_config(cfg.camera) if cfg.vio.img_enable else None,
+            vio_cfg=vio_mod.VioConfig(
+                grid_size=cfg.vio.grid_size,
+                patch_size=cfg.vio.patch_size,
+                max_iterations=cfg.vio.max_iterations,
+                outlier_threshold=cfg.vio.outlier_threshold,
+                img_point_cov=cfg.vio.img_point_cov,
+                depth_continuous_thresh=cfg.vio.depth_continuous_thresh,
+                ncc_en=cfg.vio.ncc_en,
+                ncc_thre=cfg.vio.ncc_thre,
+                levels=cfg.vio.pyr_levels,
+                exposure_en=cfg.vio.exposure_en,
+            ),
+            vm_cfg=vmap_mod.VisualMapConfig(
+                capacity=cfg.vio.max_visual_points,
+                max_obs=cfg.vio.max_obs_per_point,
+                patch_size=cfg.vio.patch_size,
+            ),
+            map_cfg=vm.VoxelMapConfig(
+                resolution=cfg.map.resolution,
+                capacity=cfg.map.capacity,
+                max_points=cfg.map.max_points_per_voxel,
+                nearby_type=cfg.map.nearby_type,
+                probe_depth=cfg.map.probe_depth,
+                surfel_decay=cfg.map.surfel_decay,
+                surfel_freeze_n=cfg.map.surfel_freeze_n,
+                lookup_unique_cap=cfg.map.lookup_unique_cap,
+            ),
+            lio_cfg=lio.LioConfig(
+                max_iteration=cfg.lio.max_iteration,
+                num_match_points=cfg.map.num_match_points,
+                laser_point_cov=cfg.lio.laser_point_cov,
+                plane_threshold=cfg.lio.plane_threshold,
+                residual_limit=cfg.lio.residual_limit,
+                converge_rot_deg=cfg.lio.converge_rot_deg,
+                converge_trans_cm=cfg.lio.converge_trans_cm,
+                filter_size_map=cfg.lio.filter_size_map,
+                measurement_model=cfg.lio.measurement_model,
+                max_jump_m=cfg.lio.max_jump_m,
+                min_effective=cfg.lio.min_effective,
+                vgicp_source_cov=cfg.lio.vgicp_source_cov,
+                vgicp_source_mode=cfg.lio.vgicp_source_mode,
+                vgicp_source_k=cfg.lio.vgicp_source_k,
+                surfel_min_points=cfg.lio.surfel_min_points,
+                surfel_planarity_max=cfg.lio.surfel_planarity_max,
+                surfel_conf_weight=cfg.lio.surfel_conf_weight,
+            ),
+            ds_leaf=cfg.lio.filter_size_surf,
+            ds_capacity=cfg.lio.max_points,
+            imu_window=cfg.imu.imu_int_frame,
+            cov_gyr=cfg.imu.cov_gyr,
+            cov_acc=cfg.imu.cov_acc,
+            cov_bias_gyr=cfg.imu.cov_bias_gyr,
+            cov_bias_acc=cfg.imu.cov_bias_acc,
+        )
 
 
 class ScanInput(NamedTuple):
@@ -90,7 +165,7 @@ def lio_scan_step(
     extra_hty: Optional[torch.Tensor] = None,
     axis_name: Optional[str] = None,
 ) -> Tuple[NavState, vm.VoxelHashMap, lio.LioInfo, Tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
-    """One full scan-end measurement update (surfel model, one device).
+    """One full scan-end measurement update (one device).
 
     Returns (posterior state, updated map, LioInfo, (world_cloud,
     world_mask), packed summary — see `step_summary`). A rejected update
@@ -99,15 +174,13 @@ def lio_scan_step(
     """
     if axis_name is not None or cfg.map_sharded:
         raise NotImplementedError(_NO_MULTI_DEVICE)
-    if cfg.lio_cfg.measurement_model != "surfel":
-        raise NotImplementedError(lio._NOT_PORTED.format(cfg.lio_cfg.measurement_model))
     state_prop, poses = _propagate(state, scan, cfg)
     pts_und = imu_mod.undistort(
         scan.pts, scan.t_offs, scan.mask, poses, state_prop, rot_il, t_il
     )
     ds_pts, ds_mask = voxelize.voxel_downsample(pts_und, scan.mask, cfg.ds_leaf, cfg.ds_capacity)
 
-    posterior, info, _ = lio.lio_update(
+    posterior, info, (nbr, nv) = lio.lio_update(
         state_prop, lidar_map, ds_pts, ds_mask, rot_il, t_il, cfg.map_cfg, cfg.lio_cfg,
         extra_hth=extra_hth, extra_hty=extra_hty,
     )
@@ -120,12 +193,17 @@ def lio_scan_step(
     _, p_w = lio.transform_to_world(ds_pts, posterior.rot, posterior.pos, rot_il, t_il)
     ds_mask = ds_mask & accept
     p_w = torch.where(torch.isfinite(p_w), p_w, 0.0)
-    dd = _maybe_dedup(p_w, ds_mask, cfg.map_cfg)
-    add = vm.slab_insert_gate(
-        lidar_map, p_w, ds_mask, cfg.map_cfg,
-        cfg.lio_cfg.filter_size_map, cfg.lio_cfg.num_match_points, dedup=dd,
-    )
-    lidar_map = vm.insert(lidar_map, p_w, add, cfg.map_cfg, dedup=dd)
+    if cfg.lio_cfg.measurement_model == "surfel":
+        # No kNN cache: gate on the point's own voxel slab.
+        dd = _maybe_dedup(p_w, ds_mask, cfg.map_cfg)
+        add = vm.slab_insert_gate(
+            lidar_map, p_w, ds_mask, cfg.map_cfg,
+            cfg.lio_cfg.filter_size_map, cfg.lio_cfg.num_match_points, dedup=dd,
+        )
+        lidar_map = vm.insert(lidar_map, p_w, add, cfg.map_cfg, dedup=dd)
+    else:
+        add = lio.map_insert_gate(p_w, ds_mask, nbr, nv, cfg.lio_cfg.filter_size_map)
+        lidar_map = vm.insert(lidar_map, p_w, add, cfg.map_cfg)
 
     summary = step_summary(posterior, info, jump, accept)
     return posterior, lidar_map, info, (p_w, ds_mask), summary
@@ -186,3 +264,174 @@ def bootstrap_map(
     ds_pts, ds_mask = voxelize.voxel_downsample(scan.pts, scan.mask, cfg.ds_leaf, cfg.ds_capacity)
     _, p_w = lio.transform_to_world(ds_pts, state.rot, state.pos, rot_il, t_il)
     return vm.insert(lidar_map, p_w, ds_mask, cfg.map_cfg)
+
+
+def scan_to_device(scan: ScanInput, device) -> ScanInput:
+    """A ScanInput with NumPy (or tensor) leaves, on `device`."""
+
+    def t(x):
+        return torch.as_tensor(x).to(device)
+
+    return ScanInput(
+        pts=t(scan.pts), t_offs=t(scan.t_offs), mask=t(scan.mask),
+        imu=imu_mod.ImuWindow(*(t(x) for x in scan.imu)),
+        t_end=t(scan.t_end), acc_scale=t(scan.acc_scale),
+    )
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+class LivoPipeline:
+    """Host-side orchestrator, one device: owns the device state and feeds
+    the per-scan and per-frame programs the measurement groups of the
+    synchronizer (`io.sync`), one group at a time.
+
+    `device=None` means the GPU and raises without one. Every processed
+    update reads one small summary back to the host (pose, and the
+    effective count or the selected-patch count), kept in `trajectory`,
+    `n_effective` and `n_selected`."""
+
+    def __init__(self, cfg, dtype=torch.float32, device=None):
+        self.device = _device.resolve(device)
+        if cfg.gnss.gnss_en:
+            raise _not_ported("GNSS fusion (gnss.gnss_en)", 11)
+        if cfg.loop.loop_en:
+            raise _not_ported("loop closure (loop.loop_en)", 12)
+        if cfg.parallel.n_devices > 1 or cfg.parallel.map_sharded:
+            raise _not_ported("multi-device execution (parallel.n_devices, parallel.map_sharded)", 14)
+        if cfg.lio.scan_batch != 1:
+            raise _not_ported("deferred-fetch scan batching (lio.scan_batch != 1)", 9)
+        if cfg.runtime.img_save_en:
+            raise _not_ported("the annotated frame dump (runtime.img_save_en)", 10)
+        self.cfg = cfg
+        self.step_cfg = StepConfig.from_config(cfg)
+        self.dtype = dtype
+        dev = self.device
+
+        rot = np.asarray(cfg.extrinsics.extrinsic_r, np.float32).reshape(3, 3)
+        self.rot_il = torch.tensor(rot, dtype=dtype, device=dev)
+        self.t_il = torch.tensor(cfg.extrinsics.extrinsic_t, dtype=dtype, device=dev)
+        # Camera-IMU from camera-LiDAR and LiDAR-IMU: p_c = Rcl p_l + Pcl.
+        rcl = np.asarray(cfg.camera.rcl, np.float32).reshape(3, 3)
+        pcl = np.asarray(cfg.camera.pcl, np.float32)
+        rot_ci = rcl @ rot.T
+        self.rot_ci = torch.tensor(rot_ci, dtype=dtype, device=dev)
+        self.t_ci = torch.tensor(
+            pcl - rot_ci @ np.asarray(cfg.extrinsics.extrinsic_t, np.float32), dtype=dtype, device=dev
+        )
+
+        self.state = NavState.identity(dtype, dev)
+        self.map = vm.make_map(self.step_cfg.map_cfg, dtype, dev)
+        self.visual_map = vmap_mod.make_visual_map(self.step_cfg.vm_cfg, dtype, dev)
+        self.initializer = imu_mod.StaticInitializer(
+            init_count=cfg.imu.init_count, zero_velocity_thresh=cfg.imu.zero_velocity_thresh
+        )
+        self.first_scan = True
+        self._first_scan_t: Optional[float] = None
+        self._init_time = cfg.lio.init_time
+        self.trajectory: list = []  # (t, pos, quat wxyz) per update, for TUM export
+        self.n_effective: List[int] = []  # per LIO update
+        self.n_selected: List[int] = []  # per VIO update
+        # VIO updates before the first LIO update: they see no world cloud.
+        self.vio_before_lio = 0
+        self.health = {"rejected": 0, "low_constraint": 0, "resets": 0}
+        self._min_effective = self.step_cfg.lio_cfg.min_effective
+        # The last accepted scan's world cloud, for the next VIO frames.
+        self.world_cloud = torch.zeros((self.step_cfg.ds_capacity, 3), dtype=dtype, device=dev)
+        self.world_mask = torch.zeros((self.step_cfg.ds_capacity,), dtype=torch.bool, device=dev)
+
+    def _init_feed(self, scan: ScanInput):
+        mask = _host(scan.imu.mask)
+        if self.initializer.push(_host(scan.imu.gyr)[mask], _host(scan.imu.acc)[mask]):
+            self.state = self.initializer.initial_state(self.dtype, self.device)
+
+    def _advance(self, scan: ScanInput):
+        """Propagate through a group's IMU window without a measurement
+        update: the window builder's clock moves on whether or not an
+        update runs."""
+        self.state, _ = imu_mod.propagate(self.state, scan.imu, scan.t_end, scan.acc_scale)
+
+    def _record(self, t_abs: float, summary: torch.Tensor) -> np.ndarray:
+        """One host read of a step summary; its pose joins the trajectory."""
+        s = summary.cpu().numpy()
+        self.trajectory.append((t_abs, s[0:3], s[3:7]))
+        return s
+
+    def process_scan(self, scan: ScanInput, t_abs: float):
+        """Feed one scan-end measurement group. Returns LioInfo, or None
+        during static initialization and the EKF warm-up."""
+        if not self.initializer.done:
+            self._init_feed(scan)
+            return None
+        scan = scan_to_device(scan, self.device)
+        if self.first_scan:
+            self._first_scan_t = t_abs
+        # EKF warm-up: propagate and insert, no update, until init_time has
+        # passed since the first scan.
+        if self.first_scan or (
+            self._first_scan_t is not None and t_abs - self._first_scan_t < self._init_time
+        ):
+            self._advance(scan)
+            self.map = bootstrap_map(self.map, scan, self.state, self.rot_il, self.t_il, self.step_cfg)
+            self.first_scan = False
+            return None
+
+        prev_cloud = (self.world_cloud, self.world_mask)
+        self.state, self.map, info, (self.world_cloud, self.world_mask), summary = lio_scan_step(
+            self.state, self.map, scan, self.rot_il, self.t_il, self.step_cfg
+        )
+        s = self._record(t_abs, summary)
+        n_eff, accepted = int(s[7]), bool(s[9] > 0.5)
+        self.n_effective.append(n_eff)
+        # The health gate ran on the device (a rejected update returned the
+        # propagated state and left the map untouched); here the counters
+        # and the world-cloud rollback to the last accepted scan.
+        if n_eff < self._min_effective:
+            self.health["low_constraint"] += 1
+        if not accepted:
+            self.health["rejected"] += 1
+            self.health["resets"] += 1
+            self.world_cloud, self.world_mask = prev_cloud
+        return info
+
+    def process_image(self, scan: ScanInput, img, t_abs: float):
+        """Feed one image-bounded measurement group (VIO update at the image
+        time). Returns VioInfo, or None before initialization."""
+        if not self.initializer.done:
+            # Image-bounded groups carry part of each sweep's IMU window;
+            # the static initialization needs them too.
+            self._init_feed(scan)
+            return None
+        scan = scan_to_device(scan, self.device)
+        if self.step_cfg.cam is None or self.first_scan:
+            self._advance(scan)
+            return None
+        img = torch.tensor(_host(img), dtype=self.dtype, device=self.device)
+        self.state, self.visual_map, info, summary = vio_scan_step(
+            self.state, self.visual_map, scan, img, self.world_cloud, self.world_mask,
+            self.rot_ci, self.t_ci, self.step_cfg,
+        )
+        self.n_selected.append(int(self._record(t_abs, summary)[7]))
+        self.vio_before_lio += not self.n_effective
+        return info
+
+    def flush_scans(self):
+        """Nothing to drain: every update reads its summary when it runs
+        (the deferred-fetch batching of lio.scan_batch is not ported)."""
+
+    def reanchor_map(self) -> bool:
+        raise _not_ported("loop-corrected map re-anchoring (reanchor_map)", 12)
+
+    def finish(self, out_dir: Optional[str] = None):
+        """Write `tum.txt` and `map.pcd` to out_dir (when given)."""
+        if out_dir is not None:
+            os.makedirs(out_dir, exist_ok=True)
+            export.write_tum(os.path.join(out_dir, "tum.txt"), self.trajectory)
+            export.write_pcd(os.path.join(out_dir, "map.pcd"), export.map_to_cloud(self.map))
+        return None
+
+    @property
+    def acc_scale(self) -> float:
+        return self.initializer.acc_scale if self.initializer.done else 1.0

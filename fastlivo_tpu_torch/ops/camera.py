@@ -1,5 +1,4 @@
-"""Pinhole camera model (port of fastlivo_tpu/ops/camera.py, without
-`from_config`, which needs the config module of a later slice)."""
+"""Pinhole camera model (port of fastlivo_tpu/ops/camera.py)."""
 
 from __future__ import annotations
 
@@ -21,6 +20,14 @@ class Pinhole:
     p1: float = 0.0
     p2: float = 0.0
     k3: float = 0.0
+
+    @staticmethod
+    def from_config(cam) -> "Pinhole":
+        """From a `utils.config.CameraParams` (d0..d4 are k1, k2, p1, p2, k3)."""
+        return Pinhole(
+            width=cam.width, height=cam.height, fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
+            k1=cam.d0, k2=cam.d1, p1=cam.d2, p2=cam.d3, k3=cam.d4,
+        )
 
     @property
     def has_distortion(self) -> bool:

@@ -80,12 +80,14 @@ def sample_patch_grid(patches: torch.Tensor, coords: torch.Tensor) -> torch.Tens
     n, s, _ = patches.shape
     u = torch.clamp(coords[..., 0], 0.0, s - 1.0)
     v = torch.clamp(coords[..., 1], 0.0, s - 1.0)
-    u0 = torch.clamp(torch.floor(u), 0, s - 2).to(torch.int64)
-    v0 = torch.clamp(torch.floor(v), 0, s - 2).to(torch.int64)
+    u0 = torch.clamp(torch.floor(u), 0, s - 2)
+    v0 = torch.clamp(torch.floor(v), 0, s - 2)
     fu = (u - u0).to(patches.dtype)
     fv = (v - v0).to(patches.dtype)
     flat = patches.reshape(n, s * s)
-    idx = v0 * s + u0  # (N, K)
+    # A NaN coordinate (a degenerate warp) reads texel 0 with NaN weights,
+    # so its sample is NaN, as the JAX one-hot matvec gives.
+    idx = (torch.nan_to_num(v0) * s + torch.nan_to_num(u0)).to(torch.int64)  # (N, K)
 
     def tap(off):
         return torch.gather(flat, 1, idx + off)

@@ -9,6 +9,7 @@ import shutil
 import subprocess
 import sys
 
+import pytest
 import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -39,7 +40,65 @@ def test_imports_with_jax_blocked():
         [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 30
+
+
+def test_every_module_is_walked():
+    """The import check above covers the host pipeline and the CLI."""
+    import pkgutil
+
+    import fastlivo_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(fastlivo_tpu_torch.__path__, "fastlivo_tpu_torch.")}
+    for mod in ("run", "ops.plane", "io.sensors", "io.sync", "io.logio", "io.export", "io.synthetic",
+                "utils.config", "utils.checkpoint", "utils.timing", "utils.metrics"):
+        assert f"fastlivo_tpu_torch.{mod}" in names
+
+
+def test_pipeline_needs_a_gpu_unless_told():
+    from fastlivo_tpu_torch.models.pipeline import LivoPipeline
+    from fastlivo_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(REPO / "configs" / "avia_livo.yaml"))
+    if torch.cuda.is_available():
+        assert LivoPipeline(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            LivoPipeline(cfg)
+
+
+@pytest.mark.parametrize(
+    "setting,item",
+    [
+        ({"gnss.gnss_en": True}, 11),
+        ({"loop.loop_en": True}, 12),
+        ({"parallel.n_devices": 2}, 14),
+        ({"parallel.map_sharded": True}, 14),
+        ({"lio.scan_batch": 0}, 9),
+        ({"lio.scan_batch": 4}, 9),
+        ({"runtime.img_save_en": True}, 10),
+    ],
+)
+def test_out_of_scope_switches_raise(setting, item):
+    from fastlivo_tpu_torch.models.pipeline import LivoPipeline
+    from fastlivo_tpu_torch.utils.config import load_config
+
+    cfg = load_config(None, {"map.capacity": 1 << 10, "vio.img_enable": False, **setting})
+    with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
+        LivoPipeline(cfg, device="cpu")
+
+
+def test_out_of_scope_runner_and_reanchor_raise(tmp_path):
+    from fastlivo_tpu_torch import run
+    from fastlivo_tpu_torch.models.pipeline import LivoPipeline
+    from fastlivo_tpu_torch.utils.config import load_config
+
+    cfg = load_config(None, {"map.capacity": 1 << 10, "vio.img_enable": False})
+    with pytest.raises(NotImplementedError, match="item 12"):
+        LivoPipeline(cfg, device="cpu").reanchor_map()
+    cfg.preprocess.feature_extract_en = True
+    with pytest.raises(NotImplementedError, match="item 13"):
+        run.run_log(str(tmp_path / "none.flvo"), cfg, device="cpu")
 
 
 def test_sources_never_import_the_jax_package():

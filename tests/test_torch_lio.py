@@ -117,11 +117,15 @@ def test_lio_update(case):
 
 
 def test_unported_models_raise():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TL.lio_update(None, None, None, None, None, None, TMAP, TL.LioConfig())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TL.lio_update(None, None, None, None, None, None, TMAP, TCFG, axis_name="x")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TP.lio_scan_step(None, None, None, None, None, TP.StepConfig(lio_cfg=TCFG), axis_name="x")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TP.lio_scan_step(None, None, None, None, None, TP.StepConfig())
+    # Every single-device measurement model is ported; the multi-device
+    # forms of the update and the step still raise, for each model.
+    for model in ("surfel", "point_to_plane", "vgicp"):
+        cfg = TL.LioConfig(measurement_model=model)
+        with pytest.raises(NotImplementedError, match="item 14"):
+            TL.lio_update(None, None, None, None, None, None, TMAP, cfg, axis_name="x")
+        with pytest.raises(NotImplementedError, match="item 14"):
+            TL.lio_update(None, None, None, None, None, None, TMAP, cfg, map_axis="x")
+        with pytest.raises(NotImplementedError, match="item 14"):
+            TP.lio_scan_step(None, None, None, None, None, TP.StepConfig(lio_cfg=cfg), axis_name="x")
+        with pytest.raises(NotImplementedError, match="item 14"):
+            TP.lio_scan_step(None, None, None, None, None, TP.StepConfig(lio_cfg=cfg, map_sharded=True))
