@@ -34,6 +34,28 @@ result line without a CUDA device):
    same tum.txt rows bit for bit. Then a profile of two LIO steps (knn's
    device share, kernels and host syncs per step) and a LIO-only VGICP run
    of 20 scans (no rejection, ATE < 0.10 m).
+5. the back end, on a street circuit (`io.synthetic.circuit_trajectory`,
+   seed 11, gyro bias 0.01 rad/s on z and 0.03 rad/s white gyro noise,
+   200 Hz IMU), both through `run.run_log`:
+   5a. configs/urbannav_loop.yaml (point-to-plane LIO, STD loop closure
+       on a worker thread, no camera) as shipped, on an 80 s log of 64,000
+       points per scan. Gates: no rejection, a loop, the loop-corrected keyframe ATE
+       below the odometry keyframe ATE, `reanchor_map()` applies and keeps
+       more than half the occupied voxels, all finite. Records LIO step,
+       wall, STD host ms per key cloud and `fit_voxel_planes` device ms,
+       `reanchor` ms, host syncs per step.
+   5b. configs/mars_lvig_gnss.yaml (GNSS from an RTK file the phase writes
+       with samples until 8 s, LIVO at 1280x1024) with the kitchen sink's
+       loop settings and the learned visual gate, on a 31 s log of 24,000
+       points per scan and 10 Hz frames. Gates: GNSS initialises and goes
+       into an update, no rejection, ATE < 0.10 m, the gate runs
+       SuperPointLightGlue and passes a loop, `patch_sample` launches
+       (counts reset just before the run, read just after).
+   5c. one learned match of two 1280x1024 frames of the 5b log timed with
+       CUDA events (SuperPoint x2, LightGlue, host readback), its FLOPs
+       from the shapes and share of the f32 peak; the card against the
+       CPU port (maps within 1e-3, the same keypoints and matches); the
+       revisit pair passes `verify_loop`, a distant pair fails it.
 
 The last two lines of standard output are the kernels' JSON record and
 `{"ok": true, "device": {...}}`. The scene helpers (`Scene`) are plain
@@ -1011,6 +1033,487 @@ def phase_cli(device, log_dir, sizes=None, extra=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the full-stack back end (STD loop closure, GNSS, the learned
+# visual gate, map re-anchoring) on one street circuit.
+# ---------------------------------------------------------------------------
+
+STREET_LOG = dict(imu_rate=200.0, scan_rate=10.0, seed=11, max_range=12.0,
+                  gyro_bias=(0.0, 0.0, 0.01), imu_noise_gyr=0.03)
+LOOP_CONFIG = "configs/urbannav_loop.yaml"
+GNSS_CONFIG = "configs/mars_lvig_gnss.yaml"
+LOOP_PTS = 64000  # a Hesai XT32's 640k points/s at 10 Hz
+GNSS_PTS = 24000  # a Livox Avia's 240k points/s at 10 Hz
+GNSS_CAMERA = (1280, 1024, 1293.57, 1293.48, 626.91, 522.799)  # mars_lvig_gnss.yaml
+GNSS_OUTAGE_S = 8.0  # samples only before this (the kitchen sink's urban canyon)
+# 5a drives three laps and a revisit. The shipped skip_near_num holds back
+# the last 50 key clouds (of 10 scans, one a second), so nothing is
+# searched before 50 s. The third lap then finds first-lap clouds 4-8 m
+# back along the street (the same place is 47 clouds back); on an H100
+# the 7 loops of a 60 s log left the corrected keyframe ATE above the
+# odometry's (11.9 against 11.4 cm). From 72 s the fourth lap revisits
+# first-lap places 70 clouds back, and those loops correct the drift.
+LOOP_LOG_S = 80.0
+# 5b drives 5 s past the 26 s lap: in 26 s the revisit covers only the
+# first 3 m of the lap, and the STD candidates it draws are lap-1 key
+# clouds 9 m further down the street, whose views the learned gate rightly
+# rejects (match ratios 0.02-0.14 at 1280x1024). By 31 s the revisit has
+# reached those places (x = 9.5 m at 29 s).
+GNSS_LOG_S = 31.0
+# The kitchen sink's loop settings (tests/test_kitchen_sink.py:79-86).
+KITCHEN_LOOP = {
+    "loop.loop_en": True, "loop.background": True, "loop.sub_frame_num": 5,
+    "loop.skip_near_num": 12, "loop.corner_thre": 6.0, "loop.icp_threshold": 0.25,
+    "loop.visual_verify_en": True, "keyframe.trans_thresh_m": 1.0,
+}
+STREET_ATE_M = 0.10
+F32_PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
+
+
+def write_street_log(path, device, pts_per_scan, duration, camera=None):
+    """The phase's circuit log (STREET_LOG for `duration` seconds), frames
+    rendered on `device` when a camera is given, written with logio.
+    Returns (sequence, params)."""
+    from fastlivo_tpu_torch.io import logio, synthetic
+    from fastlivo_tpu_torch.ops.camera import Pinhole
+
+    params = dict(STREET_LOG, pts_per_scan=pts_per_scan, duration=duration)
+    kw = dict(params, gyro_bias=np.asarray(params["gyro_bias"]), trajectory=synthetic.circuit_trajectory())
+    if camera is not None:
+        kw.update(camera=Pinhole(*camera), cam_rate=10.0, cam_offset=0.055, device=device)
+        params.update(camera=list(camera), cam_rate=10.0, cam_offset=0.055)
+    seq = synthetic.generate_street(**kw)
+    logio.write_sequence(path, seq)
+    return seq, params
+
+
+def circuit_ate(stamps, pos):
+    """ATE (m, no alignment) against the circuit's analytic trajectory."""
+    from fastlivo_tpu_torch.io import synthetic
+    from fastlivo_tpu_torch.utils.metrics import ate_rmse
+
+    traj = synthetic.circuit_trajectory()
+    gt = np.stack([traj.pos_fn(t) for t in stamps])
+    return float(ate_rmse(np.asarray(pos), gt))
+
+
+def loop_report(pipe):
+    """Keyframe ATEs (odometry and loop-corrected) and the back end's
+    counters."""
+    be = pipe.loop_backend
+    g = be.graph
+    _, trans_c = be.corrected_trajectory()
+    return dict(
+        keyframes=len(g.stamps), std_frames=len(be._std_frame_kf), loops=len(be.loops),
+        loop_pairs=[(e.kf_from, e.kf_to, e.score) for e in be.loops],
+        rejected_loops=[(a, b, float(r)) for a, b, r in be.rejected_loops],
+        kf_ate_odometry_m=circuit_ate(g.stamps, g.trans),
+        kf_ate_corrected_m=circuit_ate(g.stamps, trans_c),
+        key_cloud_points_median=float(np.median(be.key_cloud_sizes)) if be.key_cloud_sizes else None,
+        std_detect_host_ms_median=float(np.median(be.detect_s)) * 1e3 if be.detect_s else None,
+        std_detect_host_ms_all=[s * 1e3 for s in be.detect_s],
+        match_ms=[s * 1e3 for s in be.match_s], match_ratios=be.match_ratios,
+        matcher=type(be._matcher).__name__ if be._matcher is not None else None,
+    )
+
+
+def time_fit_voxel_planes(pipe, n_points, device):
+    """Device ms of `fit_voxel_planes` (CUDA events, median of 10 after 2)
+    on n_points of the final map: the STD stage that runs on the card."""
+    import torch
+
+    from fastlivo_tpu_torch.backend import std_loop
+    from fastlivo_tpu_torch.io import export
+
+    cloud = export.map_to_cloud(pipe.map)
+    pick = np.random.default_rng(0).permutation(len(cloud))[: int(n_points)]
+    pts = torch.as_tensor(cloud[pick].astype(np.float32)).to(device)
+    mask = torch.ones(len(pts), dtype=torch.bool, device=device)
+    cfg = pipe.loop_backend.std_cfg
+
+    def fit():
+        return std_loop.fit_voxel_planes(pts, mask, cfg.voxel_size, cfg.max_planes,
+                                         cfg.voxel_init_num, cfg.plane_detection_thre)
+
+    return cuda_median_ms(fit), len(pts)
+
+
+def cuda_median_ms(fn, reps=10, warmup=2):
+    """Median CUDA-event ms of `fn` over `reps` calls after `warmup`."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def run_street(log, cfg, out_dir, device):
+    """`run.run_log` with every launch counter reset just before and read
+    just after; returns (pipe, launches, wall seconds)."""
+    import torch
+
+    from fastlivo_tpu_torch import run
+    from fastlivo_tpu_torch.ops import pallas_windows as pw
+    from fastlivo_tpu_torch.ops import patch_sample as ps
+
+    counters = (pw.LAUNCHES, ps.LAUNCHES)
+    for counter in counters:
+        for key in counter:
+            counter[key] = 0
+    t0 = time.perf_counter()
+    pipe = run.run_log(log, cfg, out_dir=out_dir, progress=False, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return pipe, {key: c[key] for c in counters for key in c}, wall
+
+
+def check_street_run(pipe, out_dir, name, loop_files=True):
+    """Shared gates: no rejection, outputs read back; returns (ATE, poses)."""
+    from fastlivo_tpu_torch.io import export
+
+    if pipe.health["rejected"]:
+        raise AssertionError(f"{name}: {pipe.health['rejected']} LIO updates rejected")
+    if not pipe.n_effective:
+        raise AssertionError(f"{name}: no LIO update ran")
+    stamps, pos, quat = export.read_tum(os.path.join(out_dir, "tum.txt"))
+    if not (np.all(np.isfinite(pos)) and np.all(np.isfinite(quat))):
+        raise AssertionError(f"{name}: non-finite poses in tum.txt")
+    for f in ("loop_tum.txt", "map.pcd") if loop_files else ("map.pcd",):
+        if not os.path.exists(os.path.join(out_dir, f)):
+            raise AssertionError(f"{name}: {f} not written")
+    return circuit_ate(stamps, pos), len(stamps)
+
+
+def step_times(pipe, wall_s):
+    n_lio, n_vio = len(pipe.n_effective), len(pipe.n_selected)
+    lio_ms = pipe.timer.device_ms("lio_step")[-n_lio:] if n_lio else []
+    vio_ms = pipe.timer.device_ms("vio_step")[-n_vio:] if n_vio else []
+    n_groups = len(pipe.timer.samples["lio_step"])
+    return dict(
+        scans=n_groups, lio_updates=n_lio, vio_updates=n_vio,
+        lio_step_ms=float(np.median(lio_ms)) if lio_ms else None,
+        vio_step_ms=float(np.median(vio_ms)) if vio_ms else None,
+        wall_ms_per_scan=wall_s * 1e3 / max(n_groups, 1),
+    )
+
+
+def phase_loop(device, log_dir):
+    """5a: configs/urbannav_loop.yaml as shipped (point-to-plane LIO, STD
+    loop closure, no camera) through `run.run_log` on the circuit log.
+    Gates: no rejected update, a loop, the corrected keyframe ATE below the
+    odometry keyframe ATE, reanchor_map() applies, the map keeps more than
+    half its occupied voxels and only finite points."""
+    import torch
+
+    from fastlivo_tpu_torch.maps import voxel_map as vm
+    from fastlivo_tpu_torch.utils.config import load_config
+
+    log = os.path.join(log_dir, "street_loop.flvo")
+    t0 = time.perf_counter()
+    _, params = write_street_log(log, device, LOOP_PTS, LOOP_LOG_S)
+    log_s = time.perf_counter() - t0
+    overrides = cli_rig_overrides()
+    out_dir = os.path.join(log_dir, "loop")
+    pipe, launches, wall = run_street(log, load_config(LOOP_CONFIG, overrides), out_dir, device)
+    ate, n_poses = check_street_run(pipe, out_dir, "5a")
+    rep = loop_report(pipe)
+    rep["candidate_stamps"] = std_pair_stamps(pipe.loop_backend)
+    failed = [msg for bad, msg in (
+        (rep["loops"] < 1, f"no loop detected ({rep['std_frames']} STD frames)"),
+        (not rep["kf_ate_corrected_m"] < rep["kf_ate_odometry_m"],
+         f"corrected keyframe ATE {rep['kf_ate_corrected_m']:.4f} m not below "
+         f"odometry {rep['kf_ate_odometry_m']:.4f} m"),
+    ) if bad]
+    if failed:
+        print(json.dumps({"phase5a_failed": dict(ate_m=ate, log=params, **step_times(pipe, wall), **rep)},
+                         default=str), flush=True)
+        raise AssertionError("5a: " + "; ".join(failed))
+    occ_before = int(vm.num_occupied(pipe.map))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    applied = pipe.reanchor_map()
+    torch.cuda.synchronize()
+    reanchor_ms = (time.perf_counter() - t0) * 1e3
+    occ_after = int(vm.num_occupied(pipe.map))
+    if not applied:
+        raise AssertionError("5a: reanchor_map() applied no correction")
+    if not occ_after > 0.5 * occ_before:
+        raise AssertionError(f"5a: reanchor kept {occ_after} of {occ_before} occupied voxels")
+    if not bool(torch.all(torch.isfinite(pipe.map.points))):
+        raise AssertionError("5a: non-finite map points after reanchor")
+    cap = pipe.step_cfg.map_cfg
+    out = dict(
+        config=LOOP_CONFIG, overrides={k: str(v) for k, v in overrides.items()},
+        log=dict(params, seconds=log_s), health=pipe.health, ate_m=ate, poses=n_poses,
+        **step_times(pipe, wall), **rep,
+        reanchor_ms=reanchor_ms, reanchor_chunks=-(-(cap.capacity * cap.max_points) // 65536),
+        occupied_before=occ_before, occupied_after=occ_after, launches=launches,
+    )
+    out["std_fit_device_ms"], out["std_fit_points"] = time_fit_voxel_planes(
+        pipe, rep["key_cloud_points_median"] or 1, device
+    )
+    out["profile"] = cli_profile(log, load_config(LOOP_CONFIG, overrides), device)
+    out["profile"]["device_idle_share"] = 1.0 - out["profile"]["device_ms_per_step"] / out["lio_step_ms"]
+    return out
+
+
+def std_pair_stamps(be):
+    """Keyframe stamps of every loop and every rejected candidate:
+    (stamp of the matched frame, stamp of the current frame, match ratio
+    or, for a rejected pose check, minus the angle; None for a loop)."""
+    st = be.graph.stamps
+    out = [(st[e.kf_from], st[e.kf_to], None) for e in be.loops]
+    out += [(st[be._std_frame_kf[f]], st[k], r) for f, k, r in be.rejected_loops]
+    return out
+
+
+def write_rtk(path, seq):
+    """The GNSS stream of the log (5 Hz, 0.05 m noise, on the log's time
+    base) up to the outage, as an RTK result file."""
+    from fastlivo_tpu_torch.io import synthetic
+    from fastlivo_tpu_torch.models import gnss
+
+    samples = [s for s in synthetic.generate_gnss(seq, rate=5.0, seed=3, t_unix0=0.0, noise_m=0.05)
+               if s.time < GNSS_OUTAGE_S]
+    gnss.write_rtk_file(path, samples)
+    return len(samples)
+
+
+def phase_gnss(device, log_dir):
+    """5b: configs/mars_lvig_gnss.yaml (GNSS + LIVO at 1280x1024) with the
+    loop back end and its learned visual gate on. Gates: GNSS initialises
+    and goes into an update, no rejected update, ATE < 0.10 m, the gate
+    runs SuperPointLightGlue and passes a loop, patch_sample launches."""
+    from fastlivo_tpu_torch.backend import visual_verify as vv
+    from fastlivo_tpu_torch.utils.config import load_config
+
+    log = os.path.join(log_dir, "street_gnss.flvo")
+    t0 = time.perf_counter()
+    seq, params = write_street_log(log, device, GNSS_PTS, GNSS_LOG_S, GNSS_CAMERA)
+    rtk = os.path.join(log_dir, "rtk.txt")
+    n_rtk = write_rtk(rtk, seq)
+    log_s = time.perf_counter() - t0
+    # The rig, the RTK file and the kitchen sink's loop and gate settings.
+    overrides = {**cli_rig_overrides(), "gnss.rtk_file": rtk, **KITCHEN_LOOP}
+    out_dir = os.path.join(log_dir, "gnss")
+    pipe, launches, wall = run_street(log, load_config(GNSS_CONFIG, overrides), out_dir, device)
+    ate, n_poses = check_street_run(pipe, out_dir, "5b")
+    rep = loop_report(pipe)
+    rep["candidate_stamps"] = std_pair_stamps(pipe.loop_backend)
+    be = pipe.loop_backend
+    passed = sum(r >= be.match_ratio_thresh for r in be.match_ratios)
+    failed = [msg for bad, msg in (
+        (not pipe.gnss.initialized or pipe.gnss_blocks < 1,
+         f"GNSS initialized={pipe.gnss.initialized}, blocks={pipe.gnss_blocks}"),
+        (ate >= STREET_ATE_M, f"ATE {ate:.4f} m"),
+        (not isinstance(be._matcher, vv.SuperPointLightGlue) or not be.match_s,
+         f"the learned gate did not run (matcher {rep['matcher']})"),
+        (passed < 1 or not be.loops, f"no loop passed the gate ({len(be.loops)} loops)"),
+        (launches["patch_sample"] <= 0, "patch_sample was never launched"),
+    ) if bad]
+    if failed:
+        print(json.dumps({"phase5b_failed": dict(ate_m=ate, gnss_blocks=pipe.gnss_blocks, **rep)},
+                         default=str), flush=True)
+        raise AssertionError("5b: " + "; ".join(failed))
+    out = dict(
+        config=GNSS_CONFIG, overrides={k: str(v) for k, v in overrides.items()},
+        log=dict(params, seconds=log_s, rtk_samples=n_rtk), health=pipe.health, ate_m=ate,
+        poses=n_poses, gnss_initialized=pipe.gnss.initialized, gnss_blocks=pipe.gnss_blocks,
+        gnss_yaw_rad=float(np.arctan2(pipe.gnss.rot_we[1, 0], pipe.gnss.rot_we[0, 0])),
+        **step_times(pipe, wall), **rep, gate_passed=passed, launches=launches,
+        patch_sample_per_frame=launches["patch_sample"] / max(len(pipe.n_selected), 1),
+    )
+    out["profile"] = cli_profile(log, load_config(GNSS_CONFIG, overrides), device)
+    out["profile"]["device_idle_share"] = 1.0 - out["profile"]["device_ms_per_step"] / out["lio_step_ms"]
+    return out, seq
+
+
+def superpoint_flops(h, w):
+    """Multiply-adds x 2 of one SuperPoint pass at (h, w), from the shapes:
+    each convolution at its resolution, cout x cin x k^2 per output pixel."""
+    from fastlivo_tpu_torch.backend.superpoint_lightglue import _CONVS
+
+    scale = {"conv1": 1, "conv2": 2, "conv3": 4, "conv4": 8, "convP": 8, "convD": 8}
+    total = 0
+    for name, cin, cout, k in _CONVS:
+        s = scale[name[:5]]
+        total += 2 * (h // s) * (w // s) * cin * cout * k * k
+    return total
+
+
+def lightglue_flops(n0, n1, n_layers, d=256):
+    """Products of one LightGlue pass (per attention block: q/k/v/o
+    projections, scores and messages, the two-layer MLP; two self and two
+    cross blocks per layer), plus the final projections and similarity."""
+    def block(nq, nk):
+        proj = 2 * nq * d * d * 2 + 2 * nk * d * d * 2  # q, o / k, v
+        att = 2 * nq * nk * d * 2  # scores + messages
+        mlp = 2 * nq * (2 * d) * (2 * d) + 2 * nq * (2 * d) * d
+        return proj + att + mlp
+
+    per_layer = block(n0, n0) + block(n1, n1) + block(n0, n1) + block(n1, n0)
+    return n_layers * per_layer + 2 * (n0 + n1) * d * d + 2 * n0 * n1 * d
+
+
+def street_pairs(seq):
+    """(revisit pair, distant pair) of the log's frames: the last frame and
+    the first-lap frame nearest to it in position and heading; the same
+    first-lap frame and the frame half a lap away."""
+    from fastlivo_tpu_torch.io import synthetic
+
+    traj = synthetic.circuit_trajectory()
+    stamps = np.array([f.stamp for f in seq.frames])
+    last = len(stamps) - 1
+    p_last = traj.pos_fn(stamps[last])
+    lap1 = np.nonzero((stamps > 1.0) & (stamps < 12.0))[0]
+    near = lap1[np.argmin([np.linalg.norm(traj.pos_fn(stamps[i]) - p_last) for i in lap1])]
+    far = int(np.argmin(np.abs(stamps - (stamps[near] + 12.0))))
+    return (int(near), last), (int(near), far)
+
+
+def phase_matcher(device, seq, reps=10, warmup=2):
+    """5c: one SuperPointLightGlue.match with the committed weights on two
+    full-width frames of the 5b log: CUDA-event times (median of `reps`
+    after `warmup`) split into SuperPoint x2, LightGlue and the host
+    readback; FLOPs from the shapes and the share of the f32 peak; the card
+    against the port on the CPU (score map and dense descriptors within
+    1e-3, identical keypoints and match sets); the revisit pair passes
+    `verify_loop` and the distant pair fails it."""
+    import torch
+
+    from fastlivo_tpu_torch.backend import superpoint_lightglue as spl
+    from fastlivo_tpu_torch.backend import visual_verify as vv
+
+    (i0, i1), (j0, j1) = street_pairs(seq)
+    imgs = [seq.frames[i].img for i in (i0, i1, j0, j1)]
+    m_gpu = vv.default_matcher(device=device)
+    impl = m_gpu._impl
+    a, b = impl.prepare(imgs[0], imgs[1])
+
+    def split_once():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        with torch.no_grad():
+            ev[0].record()
+            k0, d0, v0 = spl.extract_keypoints(impl.sp, a, impl.max_keypoints)
+            ev[1].record()
+            k1, d1, v1 = spl.extract_keypoints(impl.sp, b, impl.max_keypoints)
+            ev[2].record()
+            size = torch.tensor([a.shape[1], a.shape[0]], dtype=torch.float32, device=a.device)
+            p, _, _ = spl.lightglue_forward(impl.lg, k0, d0, v0, k1, d1, v1, size)
+            ev[3].record()
+            res = impl.select(k0, v0, k1, v1, p)
+            ev[4].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)], res, int(v0.sum()), int(v1.sum())
+
+    for _ in range(warmup):
+        split_once()
+    rows = [split_once() for _ in range(reps)]
+    times = np.array([r[0] for r in rows])
+    med = np.median(times, axis=0)
+    total = cuda_median_ms(lambda: impl.match(imgs[0], imgs[1]), reps=reps, warmup=warmup)
+    h, w = a.shape
+    n0, n1 = rows[-1][2], rows[-1][3]
+    sp_flops = superpoint_flops(h, w)
+    lg_flops = lightglue_flops(impl.max_keypoints, impl.max_keypoints, impl.n_layers)
+    device_ms = float(med[0] + med[1] + med[2])
+
+    cpu = vv.default_matcher(device="cpu")
+    comp = matcher_card_vs_cpu(device, images=imgs[:2], gpu=m_gpu, cpu=cpu)
+    ok_rev, res_rev = vv.verify_loop(imgs[0], imgs[1], m_gpu)
+    ok_far, res_far = vv.verify_loop(imgs[2], imgs[3], m_gpu)
+    if comp["score_max_abs_err"] >= 1e-3 or comp["desc_max_abs_err"] >= 1e-3:
+        raise AssertionError(f"5c: card vs CPU {comp}")
+    if not (comp["keypoints_equal"] and comp["matches_equal"]):
+        raise AssertionError(f"5c: card and CPU keypoints or matches differ: {comp}")
+    if not ok_rev or ok_far:
+        raise AssertionError(
+            f"5c: revisit ratio {res_rev.match_ratio:.3f} (pass {ok_rev}), "
+            f"distant {res_far.match_ratio:.3f} (pass {ok_far})"
+        )
+    return dict(
+        image=[h, w], frames=dict(revisit=[i0, i1], distant=[j0, j1]),
+        keypoints_valid=[n0, n1], layers=impl.n_layers, max_keypoints=impl.max_keypoints,
+        superpoint_ms=[float(med[0]), float(med[1])], lightglue_ms=float(med[2]),
+        host_readback_ms=float(med[3]), match_ms=total,
+        flops=dict(superpoint_per_pass=sp_flops, lightglue=lg_flops, total=2 * sp_flops + lg_flops),
+        f32_peak_share=(2 * sp_flops + lg_flops) / (device_ms * 1e-3) / F32_PEAK_FLOPS,
+        superpoint_f32_peak_share=sp_flops / (float(med[0]) * 1e-3) / F32_PEAK_FLOPS,
+        bound_ms=(2 * sp_flops + lg_flops) / F32_PEAK_FLOPS * 1e3,
+        card_vs_cpu=comp, revisit_ratio=res_rev.match_ratio, distant_ratio=res_far.match_ratio,
+    )
+
+
+def matcher_card_vs_cpu(device, images=None, gpu=None, cpu=None, width=None, height=None):
+    """The committed matcher on the card and on the CPU at the same inputs:
+    score map and dense descriptor errors, keypoints and match sets. Without
+    `images`, a street frame pair at (width, height) is rendered."""
+    import torch
+
+    from fastlivo_tpu_torch.backend import superpoint_lightglue as spl
+    from fastlivo_tpu_torch.backend import visual_verify as vv
+
+    if images is None:
+        images = street_frames(device, width, height)
+    gpu = gpu or vv.default_matcher(device=device)
+    cpu = cpu or vv.default_matcher(device="cpu")
+    ga, gb = gpu._impl.prepare(*images)
+    ca, cb = cpu._impl.prepare(*images)
+    with torch.no_grad():
+        gs, gd = spl.superpoint_forward(gpu._impl.sp, ga)
+        cs, cd = spl.superpoint_forward(cpu._impl.sp, ca)
+        gk = spl.extract_keypoints(gpu._impl.sp, ga, gpu._impl.max_keypoints)
+        ck = spl.extract_keypoints(cpu._impl.sp, ca, cpu._impl.max_keypoints)
+    rg, rc = gpu.match(*images), cpu.match(*images)
+    # Keypoints come in score order, and two scores a rounding apart may
+    # swap places between the devices: compare the sets.
+    kg = rows_set(gk[0].cpu().numpy()[gk[2].cpu().numpy()])
+    kc = rows_set(ck[0].numpy()[ck[2].numpy()])
+    mg = rows_set(np.concatenate([rg.pts1, rg.pts2], axis=1))
+    mc = rows_set(np.concatenate([rc.pts1, rc.pts2], axis=1))
+    return dict(
+        score_max_abs_err=float((gs.cpu() - cs).abs().max()),
+        desc_max_abs_err=float((gd.cpu() - cd).abs().max()),
+        keypoints_equal=kg == kc, keypoints_differing=len(kg ^ kc),
+        keypoints_same_order=bool(torch.equal(gk[0].cpu(), ck[0])),
+        matches_equal=mg == mc, matches_differing=len(mg ^ mc),
+        matches=len(rg.pts1), n_keypoints=rg.n_keypoints,
+    )
+
+
+def rows_set(a):
+    return set(map(tuple, np.asarray(a).tolist()))
+
+
+def street_frames(device, width, height):
+    """Two street frames a short way apart along the circuit's first
+    straight (a revisit-like pair), rendered on `device`."""
+    import torch
+
+    from fastlivo_tpu_torch.io import render, synthetic
+    from fastlivo_tpu_torch.ops.camera import Pinhole
+
+    cam = Pinhole(width, height, 0.8 * width, 0.8 * width, width / 2 - 0.5, height / 2 - 0.5)
+    boxes = torch.as_tensor(synthetic.street_boxes()).to(device)
+    rot_ci = synthetic.R_IC_FORWARD.T
+    out = []
+    for x in (2.0, 2.4):
+        rcw = rot_ci.astype(np.float32)
+        pcw = (-rcw @ np.array([x, 0.1, 0.0])).astype(np.float32)
+        img = render.render_street(cam, torch.as_tensor(rcw).to(device), torch.as_tensor(pcw).to(device), boxes)
+        out.append(img.cpu().numpy())
+    return out
+
+
 def main(argv=None):
     import argparse
 
@@ -1049,6 +1552,22 @@ def main(argv=None):
     if cli_launches["patch_sample"] <= 0:
         raise AssertionError("CLI run: patch_sample was never launched")
 
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_street_") as log_dir:
+        t0 = time.perf_counter()
+        loop = phase_loop(device, log_dir)
+        loop["phase_s"] = time.perf_counter() - t0
+        print(json.dumps({"phase5a_loop": loop, "gpu": ident}), flush=True)
+        t0 = time.perf_counter()
+        gnss, seq = phase_gnss(device, log_dir)
+        gnss["phase_s"] = time.perf_counter() - t0
+        print(json.dumps({"phase5b_gnss": gnss, "gpu": ident}), flush=True)
+    t0 = time.perf_counter()
+    matcher = phase_matcher(device, seq)
+    matcher["phase_s"] = time.perf_counter() - t0
+    del seq
+    print(json.dumps({"phase5c_matcher": matcher, "gpu": ident}), flush=True)
+    gnss_launches = gnss["launches"]
+
     kernels = []
     for r in k1:
         kernels.append(dict(
@@ -1057,6 +1576,7 @@ def main(argv=None):
             replaces="fastlivo_tpu/ops/pallas_windows.py:66",
             launches=livo["launches"]["extract_windows"], on_main_path=False,
             launches_cli=cli_launches["extract_windows"],
+            launches_5b=gnss_launches["extract_windows"],
             max_abs_err=r["max_abs_err"],
             ms=r["kernel_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
@@ -1076,6 +1596,8 @@ def main(argv=None):
             launches=livo["launches"]["patch_sample"], on_main_path=True,
             launches_cli=cli_launches["patch_sample"],
             launches_cli_per_frame=cli["main"]["patch_sample_per_frame"],
+            launches_5b=gnss_launches["patch_sample"],
+            launches_5b_per_frame=gnss["patch_sample_per_frame"],
             max_abs_err=r["max_abs_err"],
             ms=r["kernel_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
@@ -1088,7 +1610,8 @@ def main(argv=None):
         ))
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"gpu": ident, "kernels": kernels, "livo": livo, "determinism": det, "cli": cli},
+            json.dump({"gpu": ident, "kernels": kernels, "livo": livo, "determinism": det, "cli": cli,
+                       "phase5a_loop": loop, "phase5b_gnss": gnss, "phase5c_matcher": matcher},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,10 +6,15 @@ module paths and function names (``state``, ``ops/so3``, ``maps/voxel_map``,
 its own copy of everything it needs: it never imports jax or fastlivo_tpu.
 
 Ported so far: the single-device LIVO cycle — ``bootstrap_map``, then
-``lio_scan_step`` with the surfel measurement model followed by
+``lio_scan_step`` (surfel, point-to-plane or VGICP) followed by
 ``vio_scan_step`` — with the one Pallas kernel of that path
-(``extract_windows``) rewritten as a CUDA kernel for sm_90a
-(``csrc/extract_windows.cu``).
+(``extract_windows``) rewritten as CUDA kernels for sm_90a
+(``csrc/extract_windows.cu``, fused into ``csrc/patch_sample.cu``); the
+host pipeline and CLI (``models/pipeline.LivoPipeline``, ``run``); and the
+back end: GNSS fusion (``models/gnss``), STD loop closure with its pose
+graph (``backend/``), the SuperPoint+LightGlue loop gate
+(``backend/superpoint_lightglue``, ``backend/visual_verify``) and
+loop-corrected map re-anchoring.
 
 Device rule: constructors and converters take ``device=None``, meaning
 CUDA (they raise when no GPU is present); every step function runs on the

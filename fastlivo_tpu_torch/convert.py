@@ -4,6 +4,10 @@
 package's state: `{k: np.asarray(v) for k, v in state._asdict().items()}`).
 Dtypes and shapes are kept exactly, including the packed `meta` rows and
 the symmetric-6 `surf_s2` of the voxel map.
+
+The matcher's weights (the committed npz artifacts, or the JAX package's
+`init_superpoint` / `init_lightglue` output as NumPy) become the state of
+the port's SuperPoint and LightGlue modules.
 """
 
 from __future__ import annotations
@@ -53,3 +57,38 @@ def voxel_map_to_numpy(m: VoxelHashMap) -> Dict[str, np.ndarray]:
 
 def visual_map_to_numpy(m: VisualMap) -> Dict[str, np.ndarray]:
     return _to_numpy(m)
+
+
+def _f32(a) -> torch.Tensor:
+    """f16 artifacts (and anything else floating) promoted to f32."""
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def superpoint_state_from_numpy(d: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """SuperPoint npz arrays (or `init_superpoint` output) -> the state
+    dict of `backend.superpoint_lightglue.SuperPoint`: HWIO convolution
+    kernels become OIHW, floats become f32, '.' in names becomes '_'."""
+    out = {}
+    for k, v in d.items():
+        t = _f32(v)
+        if k.endswith(".w"):
+            t = t.permute(3, 2, 0, 1).contiguous()
+        out[k.replace(".", "_")] = t
+    return out
+
+
+def lightglue_state_from_numpy(d: Dict[str, np.ndarray], n_layers: int | None = None):
+    """LightGlue npz arrays (or `init_lightglue` output) -> (state dict of
+    `backend.superpoint_lightglue.LightGlue`, depth). The depth is the
+    artifact's `n_layers` entry (else the official 9) unless `n_layers`
+    asks for fewer; deeper layers are left out. Floats become f32."""
+    if n_layers is None:
+        n_layers = int(d["n_layers"]) if "n_layers" in d else 9
+    out = {}
+    for k, v in d.items():
+        if k == "n_layers":
+            continue
+        if k.startswith("l") and k.split(".")[0][1:].isdigit() and int(k.split(".")[0][1:]) >= n_layers:
+            continue
+        out[k.replace(".", "_")] = _f32(v)
+    return out, n_layers

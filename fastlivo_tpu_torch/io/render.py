@@ -1,7 +1,8 @@
-"""Analytic textured-room renderer (port of texture / render_room_hits /
-render_room from fastlivo_tpu/io/render.py; `render_street` is not ported
-yet). Every pixel's ray is intersected with the room planes and shaded by
-a smooth procedural texture of the world hit point."""
+"""Analytic renderers of the synthetic worlds (port of
+fastlivo_tpu/io/render.py: texture, render_room_hits, render_room and
+render_street). Every pixel's ray is intersected with the room planes (or
+the street's ground and buildings) and shaded by a smooth procedural
+texture of the world hit point."""
 
 from __future__ import annotations
 
@@ -92,3 +93,57 @@ def render_room(
     """Render an (H, W) float32 image of the room from a world->camera pose."""
     img, _, _ = render_room_hits(cam, rcw, pcw, half, floor_z)
     return img
+
+
+def render_street(
+    cam: Pinhole,
+    rcw: torch.Tensor,
+    pcw: torch.Tensor,
+    boxes: torch.Tensor,  # (B, 5) rows (cx, cy, w, d, h) from synthetic.street_boxes
+    floor_z: float = -1.5,
+    ground_x: Tuple[float, float] = (-10.0, 50.0),
+    ground_y: Tuple[float, float] = (-12.0, 16.0),
+) -> torch.Tensor:
+    """Render an (H, W) f32 frame of the street world (ground plane +
+    building AABBs) on the device of `rcw`: slab-method ray-AABB over all
+    boxes, nearest hit, the room's procedural texture. Sky renders 0."""
+    dev = rcw.device
+    uu, vv = torch.meshgrid(
+        torch.arange(cam.width, dtype=torch.float32, device=dev) + 0.5,
+        torch.arange(cam.height, dtype=torch.float32, device=dev) + 0.5,
+        indexing="xy",
+    )
+    uv = torch.stack([uu, vv], dim=-1).reshape(-1, 2)
+    f = cam.unproject(uv)
+    d = f @ rcw  # (P, 3) world directions
+    o = -rcw.T @ pcw
+    big = 1e9
+    safe_d = torch.where(torch.abs(d) > 1e-9, d, 1e-9)
+
+    t_g = (floor_z - o[2]) / safe_d[:, 2]
+    pg = o[None, :] + t_g[:, None] * d
+    ok_g = (
+        (t_g > 1e-3)
+        & (pg[:, 0] >= ground_x[0]) & (pg[:, 0] <= ground_x[1])
+        & (pg[:, 1] >= ground_y[0]) & (pg[:, 1] <= ground_y[1])
+    )
+    t_ground = torch.where(ok_g, t_g, big)
+
+    c = boxes.to(torch.float32)
+    bmin = torch.stack(
+        [c[:, 0] - c[:, 2] / 2, c[:, 1] - c[:, 3] / 2, torch.full_like(c[:, 0], floor_z)], dim=-1
+    )
+    bmax = torch.stack([c[:, 0] + c[:, 2] / 2, c[:, 1] + c[:, 3] / 2, floor_z + c[:, 4]], dim=-1)
+    inv = 1.0 / safe_d
+    t1 = (bmin[None, :, :] - o[None, None, :]) * inv[:, None, :]  # (P, B, 3)
+    t2 = (bmax[None, :, :] - o[None, None, :]) * inv[:, None, :]
+    t_near = torch.amax(torch.minimum(t1, t2), dim=-1)  # (P, B)
+    t_far = torch.amin(torch.maximum(t1, t2), dim=-1)
+    hit = (t_near <= t_far) & (t_far > 1e-3) & (t_near > 1e-3)
+    t_box = torch.amin(torch.where(hit, t_near, big), dim=-1)
+
+    t = torch.minimum(t_ground, t_box)
+    ok = t < big
+    p_hit = o[None, :] + t[:, None] * d
+    img = torch.where(ok, texture(p_hit), 0.0)
+    return img.reshape(cam.height, cam.width).to(torch.float32)

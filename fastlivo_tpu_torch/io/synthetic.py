@@ -1,12 +1,12 @@
-"""Synthetic LIVO sequences (port of the room generator of
-fastlivo_tpu/io/synthetic.py; the street generators and `generate_gnss`
-are later slices).
+"""Synthetic LIVO sequences (port of fastlivo_tpu/io/synthetic.py: the
+room generator, the street generators and `generate_gnss`).
 
 An analytic trajectory (position and yaw) is sampled to produce IMU at
 `imu_rate` with exact body rates and specific force, LiDAR sweeps at
 `scan_rate` with true motion distortion (every point is seen from the
-sensor pose at its own time), camera frames of the textured room rendered
-by `io.render.render_room`, and ground-truth poses. The NumPy draws are the
+sensor pose at its own time), camera frames rendered by `io.render`
+(`render_room`, or `render_street` for the street world), and
+ground-truth poses. The NumPy draws are the
 JAX package's, so one seed gives the same IMU and sweeps in both packages.
 """
 
@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from fastlivo_tpu_torch import device as _device
-from fastlivo_tpu_torch.io.render import render_room
+from fastlivo_tpu_torch.io.render import render_room, render_street
 from fastlivo_tpu_torch.io.sensors import ImageFrame, ImuSample, LidarScan
 from fastlivo_tpu_torch.state import GRAVITY_MS2
 
@@ -231,3 +231,290 @@ def generate(
         world=_sample_surfaces(rng, 60000, world_half, boxes),
         frames=frames,
     )
+
+
+def street_trajectory(
+    out_dist: float = 30.0, speed: float = 2.0, rest_time: float = 0.5
+) -> Trajectory:
+    """Out-and-back along a street: drive +x for out_dist, U-turn, return.
+    Ends near the start — the loop-closure scenario (UrbanNav-style)."""
+    t_out = out_dist / speed
+    t_turn = 3.0
+
+    def warp(t):
+        s = max(t - rest_time, 0.0)
+        return s * s / (s + 0.5)
+
+    def pos(t):
+        s = warp(t)
+        if s < t_out:
+            return np.array([speed * s, 0.0, 0.0])
+        if s < t_out + t_turn:
+            a = (s - t_out) / t_turn * np.pi  # half-circle of radius r
+            r = 2.0
+            return np.array(
+                [out_dist + r * np.sin(a), r * (1 - np.cos(a)), 0.0]
+            )
+        return np.array(
+            [out_dist - speed * (s - t_out - t_turn), 2.0 * 2, 0.0]
+        )
+
+    def yaw(t):
+        s = warp(t)
+        if s < t_out:
+            return 0.0
+        if s < t_out + t_turn:
+            return (s - t_out) / t_turn * np.pi
+        return np.pi
+
+    return Trajectory(pos_fn=pos, yaw_fn=yaw)
+
+
+def circuit_trajectory(
+    straight: float = 14.0, radius: float = 3.0, speed: float = 2.0,
+    rest_time: float = 0.5,
+) -> Trajectory:
+    """Closed stadium circuit in the street world: straight +x at y=0,
+    half-circle up, straight -x at y=2*radius, half-circle back to the
+    start — returning to the origin with the SAME heading, so a revisit's
+    key cloud AND camera view both overlap the first pass (the loop case
+    where the visual verification gate can confirm, unlike an
+    out-and-back U-turn whose return views face the opposite way)."""
+    per = 2 * straight + 2 * np.pi * radius
+
+    def warp(t):
+        s = max(t - rest_time, 0.0)
+        return s * s / (s + 0.5)
+
+    def at(arc):
+        a = arc % per
+        if a < straight:
+            return np.array([a, 0.0, 0.0]), 0.0
+        a -= straight
+        if a < np.pi * radius:
+            th = a / radius
+            return (
+                np.array(
+                    [straight + radius * np.sin(th),
+                     radius * (1 - np.cos(th)), 0.0]
+                ),
+                th,
+            )
+        a -= np.pi * radius
+        if a < straight:
+            return np.array([straight - a, 2 * radius, 0.0]), np.pi
+        a -= straight
+        th = a / radius
+        return (
+            np.array(
+                [-radius * np.sin(th), radius * (1 + np.cos(th)), 0.0]
+            ),
+            np.pi + th,
+        )
+
+    def pos(t):
+        return at(speed * warp(t))[0]
+
+    def yaw(t):
+        # Unwrapped yaw: monotone with arc length (one full turn per lap).
+        arc = speed * warp(t)
+        laps = int(arc // per)
+        return at(arc)[1] + 2 * np.pi * laps
+
+    return Trajectory(pos_fn=pos, yaw_fn=yaw)
+
+
+def street_boxes(x_extent=40.0, layout_seed=123, n_b=8):
+    """The street's building layout as (cx, cy, w, d, h) rows (same draw
+    sequence street_surfaces always used, so existing scenes are
+    unchanged). AABB of row k: [cx - w/2, cx + w/2] x [cy - d/2, cy + d/2]
+    x [-1.5, h - 1.5]."""
+    rng2 = np.random.default_rng(layout_seed)
+    rows = []
+    for _ in range(n_b):
+        cx = rng2.uniform(0, x_extent)
+        cy = rng2.choice([-7.0, 11.0]) + rng2.uniform(-1, 1)
+        w, d, h = rng2.uniform(3, 6, 3)
+        rows.append((cx, cy, w, d, h))
+    return np.asarray(rows, np.float64)
+
+
+def street_surfaces(rng, n, x_extent=40.0, layout_seed=123):
+    """Ground + buildings with dense corner edges lining a street."""
+    pts = [
+        np.stack(
+            [
+                rng.uniform(-10, x_extent + 10, n // 3),
+                rng.uniform(-12, 16, n // 3),
+                np.full(n // 3, -1.5),
+            ],
+            1,
+        )
+    ]
+    boxes = street_boxes(x_extent, layout_seed)
+    n_b = len(boxes)
+    for cx, cy, w, d, h in boxes:
+        per = n // (3 * n_b)
+        for axis, val in ((0, -w / 2), (0, w / 2), (1, -d / 2), (1, d / 2)):
+            u = rng.uniform(0, 1, (per, 2))
+            face = np.zeros((per, 3))
+            face[:, axis] = val
+            face[:, 1 - axis] = (u[:, 0] - 0.5) * (d if axis == 0 else w)
+            face[:, 2] = u[:, 1] * h - 1.5
+            face[:, 0] += cx
+            face[:, 1] += cy
+            pts.append(face)
+        for ex, ey in ((-w / 2, -d / 2), (-w / 2, d / 2), (w / 2, -d / 2), (w / 2, d / 2)):
+            z = rng.uniform(-1.5, h - 1.5, per // 3)
+            edge = np.stack(
+                [np.full_like(z, cx + ex), np.full_like(z, cy + ey), z], 1
+            )
+            edge[:, :2] += rng.normal(0, 0.02, (len(z), 2))
+            pts.append(edge)
+    out = np.concatenate(pts).astype(np.float32)
+    return out
+
+
+def generate_street(
+    duration: float = 36.0,
+    imu_rate: float = 200.0,
+    scan_rate: float = 10.0,
+    pts_per_scan: int = 10000,
+    seed: int = 0,
+    max_range: float = 30.0,
+    gyro_bias: np.ndarray | None = None,
+    imu_noise_gyr: float = 0.0,
+    camera=None,  # ops.camera.Pinhole -> also render frames (render_street)
+    cam_rate: float = 10.0,
+    cam_offset: float = 0.055,
+    rot_ic: np.ndarray | None = None,
+    trajectory: Trajectory | None = None,
+    device=None,
+) -> SyntheticSequence:
+    """Street sequence for loop-closure testing (out-and-back by default):
+    scans are range-limited samples of a large structured world. Frames
+    (when `camera` is given) are rendered on `device`: None means the GPU."""
+    rng = np.random.default_rng(seed)
+    traj = trajectory or street_trajectory()
+    grav = np.array([0.0, 0.0, -GRAVITY_MS2])
+
+    bg = np.zeros(3) if gyro_bias is None else np.asarray(gyro_bias)
+    imu = []
+    for t in np.arange(0.0, duration + 1e-9, 1.0 / imu_rate):
+        rot, _ = traj.pose(t)
+        w_body = np.array([0.0, 0.0, traj.yaw_rate(t)]) + bg
+        if imu_noise_gyr:
+            w_body = w_body + rng.normal(0, imu_noise_gyr, 3)
+        a_body = rot.T @ (traj.acc_world(t) - grav)
+        imu.append(ImuSample(stamp=float(t), gyr=w_body, acc=a_body))
+
+    scans = []
+    gt_stamps, gt_rot, gt_pos = [], [], []
+    period = 1.0 / scan_rate
+    for k in range(int(duration * scan_rate)):
+        t_beg = k * period
+        offs = np.sort(rng.uniform(0.0, period, pts_per_scan))
+        # oversample the world, keep points within range of the mid-sweep pose
+        world = street_surfaces(rng, pts_per_scan * 4, layout_seed=123)
+        _, p_mid = traj.pose(t_beg + period / 2)
+        near = np.linalg.norm(world[:, :2] - p_mid[:2], axis=1) < max_range
+        world = world[near]
+        if len(world) < pts_per_scan:
+            reps = -(-pts_per_scan // max(len(world), 1)) + 1
+            world = np.tile(world, (reps, 1))[:pts_per_scan]
+        world = world[rng.permutation(len(world))[:pts_per_scan]]
+        body = np.empty_like(world)
+        buckets = np.minimum((offs / period * 16).astype(int), 15)
+        for b in range(16):
+            sel = buckets == b
+            if not sel.any():
+                continue
+            rot, pos = traj.pose(t_beg + (b + 0.5) / 16 * period)
+            body[sel] = (world[sel] - pos) @ rot
+        scans.append(
+            LidarScan(
+                stamp=float(t_beg),
+                pts=body.astype(np.float32),
+                t_offs_ms=(offs * 1e3).astype(np.float32),
+            )
+        )
+        t_end = t_beg + float(offs[-1])
+        r_e, p_e = traj.pose(t_end)
+        gt_stamps.append(t_end)
+        gt_rot.append(r_e)
+        gt_pos.append(p_e)
+
+    frames = None
+    if camera is not None:
+        dev = _device.resolve(device)
+        r_ic = R_IC_FORWARD if rot_ic is None else rot_ic
+        rot_ci = r_ic.T
+        boxes_t = torch.as_tensor(street_boxes(), device=dev)
+        frames = []
+        t = cam_offset
+        while t < duration:
+            rot_wi, pos = traj.pose(t)
+            rcw = rot_ci @ rot_wi.T
+            pcw = -rcw @ pos
+            img = render_street(
+                camera,
+                torch.tensor(rcw, dtype=torch.float32, device=dev),
+                torch.tensor(pcw, dtype=torch.float32, device=dev),
+                boxes_t,
+            )
+            frames.append(ImageFrame(stamp=float(t), img=img.cpu().numpy()))
+            t += 1.0 / cam_rate
+
+    return SyntheticSequence(
+        imu=imu,
+        scans=scans,
+        gt_stamps=np.asarray(gt_stamps),
+        gt_rot=np.asarray(gt_rot),
+        gt_pos=np.asarray(gt_pos),
+        world=street_surfaces(rng, 60000),
+        frames=frames,
+    )
+
+
+def generate_gnss(
+    seq: SyntheticSequence,
+    anchor_blh=(0.389, 1.993, 20.0),  # rad, rad, m
+    yaw_enu_to_world: float = 0.4,
+    rate: float = 5.0,
+    noise_m: float = 0.02,
+    lever: np.ndarray | None = None,
+    seed: int = 0,
+    t_unix0: float = 1.7e9,
+):
+    """Derive a GNSS ECEF stream from a sequence's ground truth (the
+    MARS-LVIG-style input the reference consumes from RTK files).
+
+    Returns a list of models.gnss.GnssSample whose ENU track is the world
+    trajectory rotated by -yaw (so the fusion must recover the yaw and
+    lever)."""
+    from scipy.spatial.transform import Rotation
+
+    from fastlivo_tpu_torch.models.gnss import GnssSample
+    from fastlivo_tpu_torch.ops import earth
+
+    rng = np.random.default_rng(seed)
+    anchor = earth.blh2ecef(np.asarray(anchor_blh))
+    c_ne = earth.cne(earth.ecef2blh(anchor))
+    r_we = Rotation.from_euler("z", yaw_enu_to_world).as_matrix()
+    lv = np.zeros(3) if lever is None else np.asarray(lever)
+
+    out = []
+    for k in range(len(seq.gt_stamps)):
+        t = seq.gt_stamps[k]
+        if rate < 1000 and (k % max(int(round(10.0 / rate)), 1)) != 0:
+            continue
+        antenna_w = seq.gt_pos[k] + seq.gt_rot[k] @ lv
+        enu = r_we.T @ antenna_w + rng.normal(0, noise_m, 3)
+        out.append(
+            GnssSample(
+                time=t_unix0 + float(t),
+                ecef=anchor + c_ne.T @ enu,
+                std_enu=np.full(3, max(noise_m, 0.01)),
+            )
+        )
+    return out

@@ -1,5 +1,5 @@
 """Fixed-capacity voxel-hash LiDAR map (port of the single-device parts of
-fastlivo_tpu/maps/voxel_map.py).
+fastlivo_tpu/maps/voxel_map.py, `reanchor` included).
 
 Same arena layout, hashes and algorithms as the JAX package — bucketized
 two-choice hash table of packed 8-word slot rows, per-voxel point slabs,
@@ -22,6 +22,7 @@ from dataclasses import dataclass
 from typing import NamedTuple, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from fastlivo_tpu_torch import device as _device
 from fastlivo_tpu_torch.ops import linalg
@@ -701,6 +702,51 @@ def surfel_lookup(
         )
     win = _surfel_win(m, queries, cfg, min_points)
     return _plane_from_win(m, win, planarity_max)
+
+
+def reanchor(
+    m: VoxelHashMap,
+    cfg: VoxelMapConfig,
+    seg_of_epoch: torch.Tensor,
+    rots: torch.Tensor,
+    trans: torch.Tensor,
+    chunk: int = 65536,
+) -> VoxelHashMap:
+    """Rigidly re-anchor the live arena after a loop correction: every
+    stored point moves by the correction of the segment its slot's insert
+    epoch maps to, p' = R_seg p + t_seg, and the arena is rebuilt by
+    re-inserting the slab in chunks (points change voxels under the
+    correction). Surfel moments are rebuilt from the slab points.
+
+    As in JAX every chunk is inserted and the epoch advances by one per
+    chunk, n_chunks in all.
+
+    Args:
+      seg_of_epoch: (E,) int32 insert epoch -> correction segment.
+      rots/trans: (K, 3, 3), (K, 3) per-segment corrections.
+    """
+    c, s = cfg.capacity, cfg.max_points
+    chunk = min(chunk, c * s)
+    dev = m.slab.device
+    slot_valid = (
+        torch.arange(s, dtype=torch.int32, device=dev)[None, :] < m.counts[:, None]
+    ) & m.occupied[:, None]
+
+    n_chunks = -(-(c * s) // chunk)
+    pad = n_chunks * chunk - c * s
+    flat_pts = F.pad(m.slab.reshape(c * s, 3), (0, 0, 0, pad))
+    flat_ok = F.pad(slot_valid.reshape(c * s), (0, pad))
+    flat_ep = F.pad(m.slab_stamps, (0, pad))
+
+    fresh = make_map(cfg, m.slab.dtype, dev)
+    for i in range(n_chunks):
+        lo = i * chunk
+        p_chunk = flat_pts[lo: lo + chunk]
+        ep_chunk = flat_ep[lo: lo + chunk]
+        seg = seg_of_epoch[torch.clamp(ep_chunk, 0, seg_of_epoch.shape[0] - 1).long()].long()
+        p_chunk = torch.einsum("nij,nj->ni", rots[seg], p_chunk) + trans[seg]
+        fresh = insert(fresh._replace(epoch=m.epoch + i), p_chunk, flat_ok[lo: lo + chunk], cfg)
+    return fresh._replace(epoch=m.epoch + n_chunks)
 
 
 def num_occupied(m: VoxelHashMap) -> torch.Tensor:

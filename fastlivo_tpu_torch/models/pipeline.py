@@ -9,9 +9,13 @@ The chain per scan is the JAX package's:
     IMU propagate -> undistort -> voxel downsample -> iterated ESKF
     -> health gate -> insert gate -> map insert
 
-`lio_scan_multi`, the multi-device branches, scan batching, GNSS, loop
-closure and the annotated-frame dump are later slices (ROADMAP.md
-section 1); the pipeline raises `NotImplementedError` for each.
+`LivoPipeline` also carries the back end: GNSS fusion (an (18,18)/(18,)
+observation block per scan, linearized at the propagated prior), the STD
+loop-closure back end with its pose graph and visual gate, loop-corrected
+map re-anchoring (`reanchor_map`) and the annotated-frame dump.
+`lio_scan_multi`, the multi-device branches and scan batching are later
+slices (ROADMAP.md section 1); the pipeline raises `NotImplementedError`
+for each.
 """
 
 from __future__ import annotations
@@ -295,16 +299,10 @@ class LivoPipeline:
 
     def __init__(self, cfg, dtype=torch.float32, device=None):
         self.device = _device.resolve(device)
-        if cfg.gnss.gnss_en:
-            raise _not_ported("GNSS fusion (gnss.gnss_en)", 11)
-        if cfg.loop.loop_en:
-            raise _not_ported("loop closure (loop.loop_en)", 12)
         if cfg.parallel.n_devices > 1 or cfg.parallel.map_sharded:
             raise _not_ported("multi-device execution (parallel.n_devices, parallel.map_sharded)", 14)
         if cfg.lio.scan_batch != 1:
             raise _not_ported("deferred-fetch scan batching (lio.scan_batch != 1)", 9)
-        if cfg.runtime.img_save_en:
-            raise _not_ported("the annotated frame dump (runtime.img_save_en)", 10)
         self.cfg = cfg
         self.step_cfg = StepConfig.from_config(cfg)
         self.dtype = dtype
@@ -341,6 +339,34 @@ class LivoPipeline:
         # The last accepted scan's world cloud, for the next VIO frames.
         self.world_cloud = torch.zeros((self.step_cfg.ds_capacity, 3), dtype=dtype, device=dev)
         self.world_mask = torch.zeros((self.step_cfg.ds_capacity,), dtype=torch.bool, device=dev)
+        # Insert epoch -> timestamp: every bootstrap and every scan step
+        # inserts once (the arena epoch advances by one), so the list index
+        # is the epoch; reanchor_map maps epochs to keyframe segments.
+        self._epoch_stamps: List[float] = []
+        self._last_vio_img: Optional[np.ndarray] = None  # for the loop gate
+        self._img_frame_idx = 0
+
+        # Loop closure + pose graph back end; detection runs on a worker
+        # thread unless loop.background is off, and finish() drains it.
+        self.loop_backend = None
+        if cfg.loop.loop_en:
+            from fastlivo_tpu_torch.backend.loop_manager import LoopBackend
+
+            self.loop_backend = LoopBackend(cfg, background=cfg.loop.background, device=dev)
+        # GNSS fusion: observation blocks on the pipeline's device.
+        self.gnss = None
+        self.gnss_blocks = 0  # LIO updates that carried a GNSS block
+        if cfg.gnss.gnss_en:
+            from fastlivo_tpu_torch.models.gnss import GnssFusion
+
+            self.gnss = GnssFusion(
+                antlever=np.asarray(cfg.gnss.antenna_lever),
+                outlier_gate_m=cfg.gnss.outlier_gate_m,
+                init_window=cfg.gnss.init_window,
+                device=dev,
+            )
+            if cfg.gnss.rtk_file:
+                self.gnss.load_rtk_file(cfg.gnss.rtk_file)
 
     def _init_feed(self, scan: ScanInput):
         mask = _host(scan.imu.mask)
@@ -375,13 +401,24 @@ class LivoPipeline:
         ):
             self._advance(scan)
             self.map = bootstrap_map(self.map, scan, self.state, self.rot_il, self.t_il, self.step_cfg)
+            self._epoch_stamps.append(t_abs)
             self.first_scan = False
             return None
 
         prev_cloud = (self.world_cloud, self.world_mask)
+        extra = None
+        if self.gnss is not None:
+            # The GNSS block is linearized at the propagated prior: one
+            # extra propagate and one host read of (rot, pos) per scan.
+            sp, _ = _propagate(self.state, scan, self.step_cfg)
+            extra = self.gnss.observe(t_abs, _host(sp.rot), _host(sp.pos))
+            self.gnss_blocks += extra is not None
         self.state, self.map, info, (self.world_cloud, self.world_mask), summary = lio_scan_step(
-            self.state, self.map, scan, self.rot_il, self.t_il, self.step_cfg
+            self.state, self.map, scan, self.rot_il, self.t_il, self.step_cfg,
+            extra_hth=None if extra is None else extra[0],
+            extra_hty=None if extra is None else extra[1],
         )
+        self._epoch_stamps.append(t_abs)
         s = self._record(t_abs, summary)
         n_eff, accepted = int(s[7]), bool(s[9] > 0.5)
         self.n_effective.append(n_eff)
@@ -394,6 +431,12 @@ class LivoPipeline:
             self.health["rejected"] += 1
             self.health["resets"] += 1
             self.world_cloud, self.world_mask = prev_cloud
+        if self.loop_backend is not None:
+            # One device-to-host copy of the masked world cloud per scan.
+            wc = self.world_cloud[self.world_mask].cpu().numpy()
+            self.loop_backend.on_scan(
+                _host(self.state.rot), s[0:3], wc, stamp=t_abs, img=self._last_vio_img,
+            )
         return info
 
     def process_image(self, scan: ScanInput, img, t_abs: float):
@@ -408,29 +451,103 @@ class LivoPipeline:
         if self.step_cfg.cam is None or self.first_scan:
             self._advance(scan)
             return None
-        img = torch.tensor(_host(img), dtype=self.dtype, device=self.device)
+        self._last_vio_img = np.asarray(_host(img), dtype=np.float32)
+        img = torch.tensor(self._last_vio_img, dtype=self.dtype, device=self.device)
         self.state, self.visual_map, info, summary = vio_scan_step(
             self.state, self.visual_map, scan, img, self.world_cloud, self.world_mask,
             self.rot_ci, self.t_ci, self.step_cfg,
         )
+        if self.cfg.runtime.img_save_en:
+            self._dump_annotated_frame(img)
         self.n_selected.append(int(self._record(t_abs, summary)[7]))
         self.vio_before_lio += not self.n_effective
         return info
+
+    def _dump_annotated_frame(self, img: torch.Tensor):
+        """Keypatch-annotated frame to <runtime.out_dir>/img/ (the
+        reference's /rgb_img stream). Debug path: one candidate re-selection
+        and one host read per frame."""
+        from fastlivo_tpu_torch.io import annotate
+
+        uv, valid, inlier = vio_mod.candidate_overlay(
+            self.state, self.visual_map, img, self.world_cloud, self.world_mask,
+            self.step_cfg.cam, self.rot_ci, self.t_ci, self.step_cfg.vm_cfg, self.step_cfg.vio_cfg,
+        )
+        annotate.save_annotated(
+            self.cfg.runtime.out_dir, self._img_frame_idx, self._last_vio_img,
+            _host(uv), _host(valid), _host(inlier),
+        )
+        self._img_frame_idx += 1
 
     def flush_scans(self):
         """Nothing to drain: every update reads its summary when it runs
         (the deferred-fetch batching of lio.scan_batch is not ported)."""
 
     def reanchor_map(self) -> bool:
-        raise _not_ported("loop-corrected map re-anchoring (reanchor_map)", 12)
+        """Re-anchor the live voxel arena with the loop-corrected keyframe
+        poses: every arena point moves by the rigid correction of the
+        keyframe nearest in time to its insert epoch, and the arena is
+        rebuilt by `vm.reanchor`. Returns True if a correction was applied."""
+        if self.loop_backend is None or not self.loop_backend.loops:
+            return False
+        if not self._epoch_stamps:
+            return False
+        g = self.loop_backend.graph
+        rots_c, trans_c = self.loop_backend.corrected_trajectory()
+        rots_d = np.asarray(g.rots)
+        trans_d = np.asarray(g.trans)
+        kf_stamps = np.asarray(g.stamps)
+        if len(kf_stamps) == 0:
+            return False
+        # Per-keyframe rigid correction: corrected = R_seg @ drifted + t_seg.
+        r_seg = rots_c @ rots_d.transpose(0, 2, 1)
+        t_seg = trans_c - np.einsum("kij,kj->ki", r_seg, trans_d)
+        # Each insert epoch goes to the nearest keyframe by timestamp.
+        ep = np.asarray(self._epoch_stamps)
+        hi = np.clip(np.searchsorted(kf_stamps, ep), 0, len(kf_stamps) - 1)
+        lo = np.clip(hi - 1, 0, len(kf_stamps) - 1)
+        seg = np.where(np.abs(ep - kf_stamps[lo]) < np.abs(ep - kf_stamps[hi]), lo, hi)
+        dev = self.device
+        self.map = vm.reanchor(
+            self.map,
+            self.step_cfg.map_cfg,
+            torch.as_tensor(seg, dtype=torch.int32, device=dev),
+            torch.as_tensor(r_seg, dtype=self.dtype, device=dev),
+            torch.as_tensor(t_seg, dtype=self.dtype, device=dev),
+        )
+        # The rebuild advances the epoch by its chunk count; the re-anchored
+        # content is attributed to the newest keyframe (consistent with the
+        # corrected trajectory), so a second correction segments correctly.
+        new_epoch = int(self.map.epoch)
+        if new_epoch > len(self._epoch_stamps):
+            self._epoch_stamps.extend(
+                [float(kf_stamps[-1])] * (new_epoch - len(self._epoch_stamps))
+            )
+        return True
 
     def finish(self, out_dir: Optional[str] = None):
-        """Write `tum.txt` and `map.pcd` to out_dir (when given)."""
+        """End-of-run outputs: drain the loop back end, then write
+        `tum.txt`, `loop_tum.txt` (the loop-corrected keyframes, when the
+        back end ran) and `map.pcd` to out_dir (when given). Returns the
+        corrected keyframe trajectory (rots, trans), or None."""
+        corrected = None
+        if self.loop_backend is not None:
+            self.loop_backend.finish()
+            corrected = self.loop_backend.corrected_trajectory()
         if out_dir is not None:
             os.makedirs(out_dir, exist_ok=True)
             export.write_tum(os.path.join(out_dir, "tum.txt"), self.trajectory)
+            if corrected is not None and len(corrected[1]):
+                rots, trans = corrected
+                stamps = self.loop_backend.graph.stamps
+                quats = so3.rot_to_quat(torch.as_tensor(np.asarray(rots), dtype=torch.float32)).numpy()
+                traj = [
+                    (stamps[i] if i < len(stamps) else float(i), trans[i], quats[i])
+                    for i in range(len(trans))
+                ]
+                export.write_tum(os.path.join(out_dir, "loop_tum.txt"), traj)
             export.write_pcd(os.path.join(out_dir, "map.pcd"), export.map_to_cloud(self.map))
-        return None
+        return corrected
 
     @property
     def acc_scale(self) -> float:

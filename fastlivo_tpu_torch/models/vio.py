@@ -1,6 +1,6 @@
 """VIO: direct sparse photometric iterated error-state Kalman update (port
-of fastlivo_tpu/models/vio.py: select, photometric_update, maintain and
-vio_update; `candidate_overlay` is not ported yet).
+of fastlivo_tpu/models/vio.py: select, photometric_update, maintain,
+vio_update and the annotated-frame `candidate_overlay`).
 
 Every patch read is one launch of the fused patch-sampling kernel on the
 GPU (csrc/patch_sample.cu, through ops/patch_sample.py). Per frame:
@@ -424,6 +424,37 @@ def photometric_update(
     cov = torch.where(improved, state_prop.cov - g_mat @ state_prop.cov, state_prop.cov)
     cov = 0.5 * (cov + cov.T)
     return state._replace(cov=cov), err_first, err_last
+
+
+def candidate_overlay(
+    state: NavState,
+    vmap: vmap_mod.VisualMap,
+    img: torch.Tensor,
+    scan_world: torch.Tensor,
+    scan_mask: torch.Tensor,
+    cam: Pinhole,
+    rot_ci: torch.Tensor,
+    t_ci: torch.Tensor,
+    vm_cfg: vmap_mod.VisualMapConfig,
+    cfg: VioConfig,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Debug overlay data for the annotated image stream: candidate
+    selection re-run at the posterior pose, each tracked candidate
+    classified by its level-0 photometric error against the stored
+    reference patch (the update's gate). Runs only with
+    runtime.img_save_en. Returns (uv (G, 2), valid (G,), inlier (G,))."""
+    pyr = pyramid_padded(img, 1)
+    sel, _ = select(state, vmap, img, scan_world, scan_mask, cam, rot_ci, t_ci, vm_cfg, cfg, pyr)
+    rcw, pcw = camera_pose(state.rot, state.pos, rot_ci, t_ci)
+    p_c = sel.pt_pos @ rcw.T + pcw
+    uv = cam.project(p_c)
+    valid = sel.valid & (p_c[..., 2] > 1e-3) & cam.in_frame(uv, border=cfg.border_px // 2)
+    strides_i = torch.round(sel.scale).to(torch.int32)
+    val = img_ops.strided_patch_sample(pyr[0], uv, strides_i, cfg.patch_size, _SAMPLE_PAD)
+    res = val - sel.ref_patch[:, 0, :]
+    err = torch.sum(res * res, dim=-1)
+    inlier = valid & (err <= cfg.outlier_threshold * cfg.patch_size**2)
+    return uv, valid, inlier
 
 
 def maintain(

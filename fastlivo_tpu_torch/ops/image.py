@@ -1,6 +1,7 @@
-"""Image operations for the photometric VIO path (port of
-fastlivo_tpu/ops/image.py: the window-based samplers, the pyramid and the
-dense Shi-Tomasi map).
+"""Image operations (port of fastlivo_tpu/ops/image.py): the window-based
+samplers, the pyramid and the dense Shi-Tomasi map of the photometric VIO
+path, and `bilinear`, `extract_patches` and `shi_tomasi_at` for the
+classical loop-gate matchers.
 
 Convention: images are (H, W) float32; pixel coords are (u, v) = (col,
 row); all samplers take flat (..., 2) pixel arrays.
@@ -16,6 +17,33 @@ import torch.nn.functional as F
 from fastlivo_tpu_torch.ops import pallas_windows, patch_sample
 
 
+def bilinear(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample img (H, W) at uv (..., 2); zero outside."""
+    h, w = img.shape
+    u = uv[..., 0]
+    v = uv[..., 1]
+    u0 = torch.floor(u)
+    v0 = torch.floor(v)
+    fu = u - u0
+    fv = v - v0
+    u0i = u0.to(torch.int32)
+    v0i = v0.to(torch.int32)
+
+    def tap(du, dv):
+        ui = u0i + du
+        vi = v0i + dv
+        ok = (ui >= 0) & (ui < w) & (vi >= 0) & (vi < h)
+        val = img[torch.clamp(vi, 0, h - 1).long(), torch.clamp(ui, 0, w - 1).long()]
+        return torch.where(ok, val, 0.0)
+
+    return (
+        tap(0, 0) * (1 - fu) * (1 - fv)
+        + tap(1, 0) * fu * (1 - fv)
+        + tap(0, 1) * (1 - fu) * fv
+        + tap(1, 1) * fu * fv
+    )
+
+
 def patch_grid(patch_size: int, dtype=torch.float32, device=None) -> torch.Tensor:
     """(patch_size^2, 2) offsets (u=col, v=row) centered at the patch
     middle, row-major."""
@@ -23,6 +51,25 @@ def patch_grid(patch_size: int, dtype=torch.float32, device=None) -> torch.Tenso
     r = torch.arange(patch_size, dtype=dtype, device=device) - half
     vv, uu = torch.meshgrid(r, r, indexing="ij")
     return torch.stack([uu.reshape(-1), vv.reshape(-1)], dim=-1)
+
+
+def _patch_uv(img, centers, patch_size, scale):
+    """Patch lattice anchored at floor(center/scale)*scale and stepped by
+    `scale` (a number or a per-point (N,) tensor)."""
+    s = torch.as_tensor(scale, dtype=img.dtype, device=img.device)
+    s = torch.broadcast_to(s, centers.shape[:-1])[..., None]  # (N, 1)
+    base = torch.floor(centers / s) * s
+    sub = (centers - base) / s
+    grid = patch_grid(patch_size, img.dtype, img.device)  # (K, 2)
+    uv = base[:, None, :] + (grid[None, :, :] + sub[:, None, :]) * s[:, None, :]
+    return uv, s
+
+
+def extract_patches(img: torch.Tensor, centers: torch.Tensor, patch_size: int, scale) -> torch.Tensor:
+    """(N, 2) centers -> (N, patch_size^2) intensities on the reference's
+    getpatch lattice (every texel shares the center's subpixel fraction)."""
+    uv, _ = _patch_uv(img, centers, patch_size, scale)
+    return bilinear(img, uv)
 
 
 def pad_image(img: torch.Tensor, pad: int) -> torch.Tensor:
@@ -130,3 +177,13 @@ def shi_tomasi_dense(img: torch.Tensor, halfbox: int = 4) -> torch.Tensor:
     dxy = box(dx * dy)
     area = k * k
     return 0.5 * (dxx + dyy - torch.sqrt((dxx - dyy) ** 2 + 4.0 * dxy**2)) / area
+
+
+def shi_tomasi_at(img: torch.Tensor, centers: torch.Tensor, halfbox: int = 4) -> torch.Tensor:
+    """Shi-Tomasi scores at scattered (N, 2) centers: the dense map and
+    one gather per point."""
+    dense = shi_tomasi_dense(img, halfbox)
+    h, w = img.shape
+    u = torch.clamp(torch.floor(centers[:, 0]).to(torch.int32), 0, w - 1).long()
+    v = torch.clamp(torch.floor(centers[:, 1]).to(torch.int32), 0, h - 1).long()
+    return dense[v, u]

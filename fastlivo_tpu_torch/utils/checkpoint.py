@@ -52,6 +52,7 @@ def save_pipeline(path: str, pipe, meta: Dict[str, Any] | None = None):
     blobs["traj_quat"] = np.stack([q for _, _, q in traj]) if traj else np.zeros((0, 4), np.float32)
     blobs["n_effective"] = np.asarray(pipe.n_effective, np.int64)
     blobs["n_selected"] = np.asarray(pipe.n_selected, np.int64)
+    blobs["epoch_stamps"] = np.asarray(pipe._epoch_stamps, np.float64)
     # As arrays, dtype kept: acc_scale is computed from them in that dtype.
     blobs["init_mean_acc"] = np.asarray(pipe.initializer.mean_acc)
     blobs["init_mean_gyr"] = np.asarray(pipe.initializer.mean_gyr)
@@ -89,6 +90,8 @@ def load_pipeline(path: str, pipe) -> Dict[str, Any]:
         pipe.trajectory = [(float(t), pos[i], quat[i]) for i, t in enumerate(data["traj_t"])]
         pipe.n_effective = [int(v) for v in data["n_effective"]]
         pipe.n_selected = [int(v) for v in data["n_selected"]]
+        if "epoch_stamps" in data:  # insert epoch -> stamp, for reanchor_map
+            pipe._epoch_stamps = [float(v) for v in data["epoch_stamps"]]
         pipe.initializer.mean_acc = np.array(data["init_mean_acc"])
         pipe.initializer.mean_gyr = np.array(data["init_mean_gyr"])
     pipe.first_scan = bool(header["first_scan"])

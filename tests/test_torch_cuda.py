@@ -103,3 +103,55 @@ def test_patch_sample_rejects_bad_inputs(cuda_device):
         ps.patch_sample(img, c.cpu(), s, 8, 32)  # two devices
     with pytest.raises(ValueError):
         ps.patch_sample(img, c, s.long(), 8, 32)
+
+
+@pytest.mark.cuda
+def test_fit_voxel_planes_card_matches_cpu(cuda_device):
+    from fastlivo_tpu_torch.backend import std_loop
+
+    rng = np.random.default_rng(4)
+    ground = np.c_[rng.uniform(-20, 20, (30000, 2)), np.zeros(30000)]
+    wall = np.c_[np.full(8000, 3.3), rng.uniform(-20, 20, 8000), rng.uniform(0, 6, 8000)]
+    cloud = torch.as_tensor(np.concatenate([ground, wall]).astype(np.float32))
+    kw = dict(voxel_size=2.0, max_voxels=1024, min_points=10, plane_thresh=0.01)
+    ones = torch.ones(len(cloud), dtype=torch.bool)
+    cpu = std_loop.fit_voxel_planes(cloud, ones, **kw)
+    gpu = std_loop.fit_voxel_planes(cloud.to(cuda_device), ones.to(cuda_device), **kw)
+    for k in ("coords", "count", "is_plane", "valid"):
+        assert torch.equal(gpu[k].cpu(), cpu[k]), k
+    pl = cpu["is_plane"]
+    assert int(pl.sum()) > 100
+    assert torch.allclose(gpu["center"].cpu()[pl], cpu["center"][pl], atol=1e-5)
+    assert torch.allclose(gpu["normal"].cpu()[pl], cpu["normal"][pl], atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_learned_matcher_card_matches_cpu(cuda_device):
+    """The committed matcher on a street frame pair: the score map and
+    dense descriptors within 1e-3, the keypoints and match set equal."""
+    match = chip_smoke.matcher_card_vs_cpu(cuda_device, width=320, height=256)
+    assert match["score_max_abs_err"] < 1e-3 and match["desc_max_abs_err"] < 1e-3
+    assert match["keypoints_equal"] and match["matches_equal"]
+
+
+@pytest.mark.cuda
+def test_align_trajectory_card_matches_cpu(cuda_device):
+    """GNSS initialisation runs its Gauss-Newton on the pipeline's device:
+    the card's yaw and lever agree with the CPU's to f32 rounding."""
+    from scipy.spatial.transform import Rotation
+
+    from fastlivo_tpu_torch.models import gnss
+
+    rng = np.random.default_rng(4)
+    n = 40
+    r_we = Rotation.from_euler("z", 0.7).as_matrix()
+    lever = np.array([0.2, -0.1, 0.5])
+    odo_pos = np.cumsum(rng.normal(0, 0.3, (n, 3)), axis=0) * [1.0, 1.0, 0.1]
+    odo_rot = np.stack([Rotation.from_euler("z", 0.05 * i).as_matrix() for i in range(n)])
+    gnss_enu = (odo_pos + np.einsum("nij,j->ni", odo_rot, lever)) @ r_we + rng.normal(0, 0.02, (n, 3))
+    args = (odo_pos, odo_rot, gnss_enu, np.full(3, 0.02))
+    r_gpu, l_gpu = gnss.align_trajectory(*args, device=cuda_device)
+    r_cpu, l_cpu = gnss.align_trajectory(*args, device="cpu")
+    np.testing.assert_allclose(r_gpu, r_cpu, atol=1e-5)
+    np.testing.assert_allclose(l_gpu, l_cpu, atol=1e-4)
+    np.testing.assert_allclose(l_cpu, lever, atol=0.05)

@@ -51,7 +51,9 @@ def test_every_module_is_walked():
 
     names = {m.name for m in pkgutil.walk_packages(fastlivo_tpu_torch.__path__, "fastlivo_tpu_torch.")}
     for mod in ("run", "ops.plane", "io.sensors", "io.sync", "io.logio", "io.export", "io.synthetic",
-                "utils.config", "utils.checkpoint", "utils.timing", "utils.metrics"):
+                "utils.config", "utils.checkpoint", "utils.timing", "utils.metrics", "ops.earth",
+                "models.gnss", "io.annotate", "backend.std_loop", "backend.pose_graph",
+                "backend.loop_manager", "backend.superpoint_lightglue", "backend.visual_verify"):
         assert f"fastlivo_tpu_torch.{mod}" in names
 
 
@@ -68,15 +70,46 @@ def test_pipeline_needs_a_gpu_unless_told():
 
 
 @pytest.mark.parametrize(
+    "name",
+    ["PatchMatcher", "OrientedPatchMatcher", "SuperPointLightGlue", "default_matcher",
+     "StdLoopDetector", "LoopBackend", "GnssFusion", "align_trajectory"],
+)
+def test_back_end_needs_a_gpu_unless_told(name):
+    """The back end's constructors and entry points follow the port's device
+    rule: no `device` means CUDA, and raises without a GPU."""
+    import numpy as np
+
+    from fastlivo_tpu_torch.backend import loop_manager, std_loop
+    from fastlivo_tpu_torch.backend import visual_verify as vv
+    from fastlivo_tpu_torch.models import gnss
+    from fastlivo_tpu_torch.utils.config import load_config
+
+    make = {
+        "PatchMatcher": lambda: vv.PatchMatcher(),
+        "OrientedPatchMatcher": lambda: vv.OrientedPatchMatcher(),
+        "SuperPointLightGlue": lambda: vv.SuperPointLightGlue(weights_path=vv.default_weights_paths()),
+        "default_matcher": lambda: vv.default_matcher(),
+        "StdLoopDetector": lambda: std_loop.StdLoopDetector(std_loop.StdConfig()),
+        "LoopBackend": lambda: loop_manager.LoopBackend(
+            load_config(str(REPO / "configs" / "urbannav_loop.yaml"))),
+        "GnssFusion": lambda: gnss.GnssFusion(),
+        "align_trajectory": lambda: gnss.align_trajectory(
+            np.zeros((2, 3)), np.tile(np.eye(3), (2, 1, 1)), np.zeros((2, 3)), np.ones(3), iters=1),
+    }[name]
+    if torch.cuda.is_available():
+        make()
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
+@pytest.mark.parametrize(
     "setting,item",
     [
-        ({"gnss.gnss_en": True}, 11),
-        ({"loop.loop_en": True}, 12),
         ({"parallel.n_devices": 2}, 14),
         ({"parallel.map_sharded": True}, 14),
         ({"lio.scan_batch": 0}, 9),
         ({"lio.scan_batch": 4}, 9),
-        ({"runtime.img_save_en": True}, 10),
     ],
 )
 def test_out_of_scope_switches_raise(setting, item):
@@ -89,16 +122,48 @@ def test_out_of_scope_switches_raise(setting, item):
 
 
 def test_out_of_scope_runner_and_reanchor_raise(tmp_path):
+    """Feature extraction still raises; reanchor_map is ported and, without
+    a loop back end, has nothing to apply."""
     from fastlivo_tpu_torch import run
     from fastlivo_tpu_torch.models.pipeline import LivoPipeline
     from fastlivo_tpu_torch.utils.config import load_config
 
     cfg = load_config(None, {"map.capacity": 1 << 10, "vio.img_enable": False})
-    with pytest.raises(NotImplementedError, match="item 12"):
-        LivoPipeline(cfg, device="cpu").reanchor_map()
+    assert LivoPipeline(cfg, device="cpu").reanchor_map() is False
     cfg.preprocess.feature_extract_en = True
     with pytest.raises(NotImplementedError, match="item 13"):
         run.run_log(str(tmp_path / "none.flvo"), cfg, device="cpu")
+
+
+def test_back_end_constructs_with_jax_blocked(tmp_path):
+    """The learned matcher loads the committed weights, and a pipeline with
+    GNSS, the loop back end, its visual gate and the frame dump constructs
+    from both shipped back-end configs, with jax and the JAX package
+    blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "sys.modules['fastlivo_tpu'] = None\n"
+        "from fastlivo_tpu_torch.backend import visual_verify as vv\n"
+        "m = vv.default_matcher(device='cpu')\n"
+        "assert isinstance(m, vv.SuperPointLightGlue), type(m)\n"
+        "from fastlivo_tpu_torch.models.pipeline import LivoPipeline\n"
+        "from fastlivo_tpu_torch.utils.config import load_config\n"
+        "small = {'map.capacity': 1 << 10, 'vio.max_visual_points': 256, 'loop.visual_verify_en': True,\n"
+        "         'gnss.gnss_en': True, 'loop.loop_en': True, 'runtime.img_save_en': True}\n"
+        "for c in ('configs/urbannav_loop.yaml', 'configs/mars_lvig_gnss.yaml'):\n"
+        "    p = LivoPipeline(load_config(c, small), device='cpu')\n"
+        "    assert p.gnss is not None and p.loop_backend is not None\n"
+        "assert 'jax' not in [k for k, v in sys.modules.items() if v is not None]\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
 
 
 def test_sources_never_import_the_jax_package():
