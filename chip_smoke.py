@@ -57,6 +57,34 @@ result line without a CUDA device):
        CPU port (maps within 1e-3, the same keypoints and matches); the
        revisit pair passes `verify_loop`, a distant pair fails it.
 
+6. a recorded bag: the phase writes its own ROS bag V2.0 files.
+   6a. phase 4's 8 s room log as a bag (livox CustomMsg 24,000 points per
+       scan, 200 Hz sensor_msgs/Imu, 640x512 mono8 sensor_msgs/Image at
+       10 Hz, uncompressed chunks), converted by the port's `bag_to_flvo`
+       (lidar type 1, default LidarParams), then `run.run_log` with
+       configs/avia_livo.yaml (rig overrides only); launch counts reset just
+       before the run and read just after. Gates: the converted message
+       counts equal those written, the run decoded the log natively, the
+       native and NumPy decoders give the same records bit for bit, no
+       rejected update, ATE < 0.10 m, `patch_sample` launches.
+   6b. the bag's first 2 s rewritten with lz4 (the port's `io.lz4f`) and
+       bz2 chunks: each converts to the uncompressed bag's log byte for
+       byte.
+   6c. the 6a log's first 30 scan-end groups with lio.scan_batch 1, 4 and
+       0: the trajectory rows equal the 6a run's first rows within 1e-6 m;
+       host syncs per scan-end group in each mode.
+   6d. feature selection: the 6a bag's first 3 s with every sweep
+       ray-cast ring by ring (24,000 points, consecutive points neighbours
+       on a surface, as a 16-ring spinning LiDAR records them), converted,
+       then 20 scan-end groups with preprocess.feature_extract_en 1. Gates:
+       every scan keeps more than half of its points (far above the
+       100-point fallback), no rejection, n_effective >= min_effective on
+       every update, every state finite (the kept share, the host ms of
+       `classify_features` and the ATE are recorded).
+   6e. `colorize_cloud` of the 6a run's map cloud through the log's last
+       frame on the card and on the CPU: the same visible mask, values
+       within 1e-4, some points visible.
+
 The last two lines of standard output are the kernels' JSON record and
 `{"ok": true, "device": {...}}`. The scene helpers (`Scene`) are plain
 numpy so the CPU tests can feed the same inputs to both packages.
@@ -64,9 +92,11 @@ numpy so the CPU tests can feed the same inputs to both packages.
 
 from __future__ import annotations
 
+import bz2
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -554,6 +584,24 @@ def phase_patch_sample(device):
     return rows
 
 
+def reset_launches():
+    """Every kernel wrapper's launch count to 0."""
+    from fastlivo_tpu_torch.ops import pallas_windows as pw
+    from fastlivo_tpu_torch.ops import patch_sample as ps
+
+    for counter in (pw.LAUNCHES, ps.LAUNCHES):
+        for key in counter:
+            counter[key] = 0
+
+
+def read_launches():
+    """Every kernel wrapper's launch count, by kernel name."""
+    from fastlivo_tpu_torch.ops import pallas_windows as pw
+    from fastlivo_tpu_torch.ops import patch_sample as ps
+
+    return {key: c[key] for c in (pw.LAUNCHES, ps.LAUNCHES) for key in c}
+
+
 def _summary_np(x):
     return np.asarray(x.detach().cpu().numpy(), np.float64)
 
@@ -699,6 +747,12 @@ def profile_pairs(run, inputs):
 
 def count_call_syncs(fn):
     """Host synchronizations in one call (torch's sync debug mode)."""
+    return syncs_and_result(fn)[0]
+
+
+def syncs_and_result(fn):
+    """(host synchronizations in one call of `fn`, its result), counted by
+    torch's sync debug mode (one warning per synchronizing call)."""
     import warnings
 
     import torch
@@ -708,10 +762,10 @@ def count_call_syncs(fn):
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            fn()
+            out = fn()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return sum("synchroniz" in str(w.message) for w in caught), out
 
 
 def count_syncs(run, inp):
@@ -736,22 +790,16 @@ def phase_livo(device, n_warm=3, n_timed=20, n_profile=2):
     and one pair under the sync counter."""
     import torch
 
-    from fastlivo_tpu_torch.ops import pallas_windows as pw
-    from fastlivo_tpu_torch.ops import patch_sample as ps
-
-    counters = (pw.LAUNCHES, ps.LAUNCHES)
     run = LivoRun(flagship_config(), Scene(n_raw=81920, imu_m=32, seed=0), device)
     warm = run.make_inputs(n_warm)
     timed_in = run.make_inputs(n_timed)
     extra = run.make_inputs(n_profile + 1)
     records = [run.pair(inp) for inp in warm]
     torch.cuda.synchronize()
-    for counter in counters:
-        for key in counter:
-            counter[key] = 0
+    reset_launches()
     timed = [run.pair(inp, timed=True) for inp in timed_in]
     torch.cuda.synchronize()
-    launches = {key: c[key] for c in counters for key in c}
+    launches = read_launches()
     records = finish(records + timed)
     check_records(records)
     if min(r["vio"][7] for r in timed) <= 0:
@@ -962,8 +1010,6 @@ def phase_cli(device, log_dir, sizes=None, extra=None):
     import torch
 
     from fastlivo_tpu_torch import run
-    from fastlivo_tpu_torch.ops import pallas_windows as pw
-    from fastlivo_tpu_torch.ops import patch_sample as ps
 
     log = os.path.join(log_dir, "cli.flvo")
     t0 = time.perf_counter()
@@ -971,17 +1017,14 @@ def phase_cli(device, log_dir, sizes=None, extra=None):
     log_s = time.perf_counter() - t0
     out = {}
 
-    counters = (pw.LAUNCHES, ps.LAUNCHES)
-    for counter in counters:
-        for key in counter:
-            counter[key] = 0
+    reset_launches()
     main_dir = os.path.join(log_dir, "main")
     t0 = time.perf_counter()
     pipe = run.run_log(log, cli_config(extra), out_dir=main_dir, progress=False, device=device)
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {key: c[key] for c in counters for key in c}
+    launches = read_launches()
     ate, n_poses, n_map = check_cli_run(pipe, main_dir, frames=True)
     # After the warm-up every scan-end group is an update and every frame
     # one VIO step: the last stages of each kind are the updates.
@@ -1162,18 +1205,13 @@ def run_street(log, cfg, out_dir, device):
     import torch
 
     from fastlivo_tpu_torch import run
-    from fastlivo_tpu_torch.ops import pallas_windows as pw
-    from fastlivo_tpu_torch.ops import patch_sample as ps
 
-    counters = (pw.LAUNCHES, ps.LAUNCHES)
-    for counter in counters:
-        for key in counter:
-            counter[key] = 0
+    reset_launches()
     t0 = time.perf_counter()
     pipe = run.run_log(log, cfg, out_dir=out_dir, progress=False, device=device)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return pipe, {key: c[key] for c in counters for key in c}, wall
+    return pipe, read_launches(), wall
 
 
 def check_street_run(pipe, out_dir, name, loop_files=True):
@@ -1514,6 +1552,487 @@ def street_frames(device, width, height):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: a recorded bag through the converter and the CLI. The phase
+# writes its bags itself (the JAX package has no bag writer): ROS bag V2.0,
+# chunked, with the ROS1 wire format of sensor_msgs/Imu, sensor_msgs/Image
+# and livox_ros_driver/CustomMsg.
+# ---------------------------------------------------------------------------
+
+BAG_TOPICS = dict(lidar="/livox/lidar", imu="/livox/imu", img="/left_camera/image")
+BAG_CHUNK_BYTES = 768 * 1024  # rosbag record's default chunk threshold
+BAG_CODEC_S = 2.0  # 6b rewrites this much of the bag with lz4 and bz2 chunks
+BATCH_SCANS = 30  # 6c: scan-end groups per batched run
+BATCH_MODES = (1, 4, 0)
+BATCH_TOL_M = 1e-6  # tests/test_scan_batch.py:92,134
+BATCH_WARM_GROUPS = 10  # scan-end groups of static init and EKF warm-up, not counted for syncs
+FEATURE_SCANS = 20  # 6d: scan-end groups with feature selection
+FEATURE_S = 3.0  # 6d: seconds of the 6a bag rewritten with ring sweeps
+FEATURE_RINGS, FEATURE_PER_RING = 16, 1500  # 24,000 points per sweep, as 6a's
+FEATURE_KEPT_MIN = 0.5  # 6d: least share of each scan that the selection keeps
+COLOR_TOL = 1e-4  # 6e: card against CPU, intensity units
+_U32 = struct.Struct("<I")
+_CUSTOM_POINT = np.dtype([
+    ("offset_time", "<u4"), ("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+    ("reflectivity", "u1"), ("tag", "u1"), ("line", "u1"),
+])
+
+
+def ros_stamp(t):
+    """(secs, nsecs) of a time in seconds."""
+    secs = int(math.floor(t))
+    nsecs = int(round((t - secs) * 1e9))
+    if nsecs >= 1_000_000_000:
+        secs, nsecs = secs + 1, nsecs - 1_000_000_000
+    return secs, nsecs
+
+
+def _ros_header(t, frame):
+    f = frame.encode()
+    return struct.pack("<III", 0, *ros_stamp(t)) + _U32.pack(len(f)) + f
+
+
+def ros_imu(s):
+    """sensor_msgs/Imu: header, orientation and covariances zero."""
+    zero9 = bytes(72)
+    return (_ros_header(s.stamp, "imu") + struct.pack("<4d", 0.0, 0.0, 0.0, 1.0) + zero9
+            + np.asarray(s.gyr, "<f8").tobytes() + zero9 + np.asarray(s.acc, "<f8").tobytes() + zero9)
+
+
+def ros_livox(scan, rng):
+    """livox_ros_driver/CustomMsg of a sweep: timebase = the header stamp in
+    ns, offset_time in ns, tag 0x10, lines 0-5 in turn."""
+    n = len(scan.pts)
+    rec = np.zeros(n, _CUSTOM_POINT)
+    rec["offset_time"] = np.round(scan.t_offs_ms.astype(np.float64) * 1e6).astype(np.uint32)
+    rec["x"], rec["y"], rec["z"] = scan.pts[:, 0], scan.pts[:, 1], scan.pts[:, 2]
+    rec["reflectivity"] = rng.integers(0, 256, n)
+    rec["tag"] = 0x10
+    rec["line"] = np.arange(n) % 6
+    secs, nsecs = ros_stamp(scan.stamp)
+    return (_ros_header(scan.stamp, "livox_frame") + struct.pack("<QI", secs * 1_000_000_000 + nsecs, n)
+            + bytes(4) + _U32.pack(n) + rec.tobytes())
+
+
+def ros_mono8(frame):
+    """sensor_msgs/Image, mono8, the frame clipped and truncated to u8 as
+    logio.LogWriter stores it."""
+    img = np.clip(np.asarray(frame.img), 0, 255).astype(np.uint8)
+    h, w = img.shape
+    enc = b"mono8"
+    return (_ros_header(frame.stamp, "camera") + struct.pack("<II", h, w) + _U32.pack(len(enc)) + enc
+            + b"\x00" + struct.pack("<II", w, h * w) + img.tobytes())
+
+
+def bag_messages(seq, rng):
+    """The sequence's records as (topic, type, bag time, raw message) in
+    logio.write_sequence's order (by stamp; IMU, LiDAR, image on ties)."""
+    msgs = [(s.stamp, 0, BAG_TOPICS["imu"], "sensor_msgs/Imu", ros_imu(s)) for s in seq.imu]
+    msgs += [(s.stamp, 1, BAG_TOPICS["lidar"], "livox_ros_driver/CustomMsg", ros_livox(s, rng))
+             for s in seq.scans]
+    msgs += [(f.stamp, 2, BAG_TOPICS["img"], "sensor_msgs/Image", ros_mono8(f)) for f in seq.frames]
+    msgs.sort(key=lambda m: (m[0], m[1]))
+    return [(topic, typ, t, raw) for t, _, topic, typ, raw in msgs]
+
+
+def _bag_fields(fields):
+    return b"".join(_U32.pack(len(k) + 1 + len(v)) + k + b"=" + v for k, v in fields.items())
+
+
+def _bag_record(fields, data):
+    h = _bag_fields(fields)
+    return _U32.pack(len(h)) + h + _U32.pack(len(data)) + data
+
+
+def write_bag(path, messages, compression="none"):
+    """A ROS bag V2.0: the magic line, the bag header record, then chunk
+    records of about BAG_CHUNK_BYTES, each compressed with `compression`
+    (none, bz2, or lz4 through the port's io.lz4f), holding each topic's
+    connection record before its first message and the message records
+    (record time: u32 secs, then u32 nsecs). No index records: the reader
+    streams the chunks. Returns the compressed chunk payloads, the raw
+    chunk bytes and the compression seconds."""
+    from fastlivo_tpu_torch.io import lz4f
+
+    conns, chunks, buf = {}, [], bytearray()
+    for topic, msg_type, t, raw in messages:
+        if topic not in conns:
+            conns[topic] = len(conns)
+            buf += _bag_record(
+                {b"op": b"\x07", b"conn": _U32.pack(conns[topic]), b"topic": topic.encode()},
+                _bag_fields({b"topic": topic.encode(), b"type": msg_type.encode(), b"md5sum": b"*",
+                             b"message_definition": b""}),
+            )
+        buf += _bag_record(
+            {b"op": b"\x02", b"conn": _U32.pack(conns[topic]), b"time": struct.pack("<II", *ros_stamp(t))},
+            raw,
+        )
+        if len(buf) >= BAG_CHUNK_BYTES:
+            chunks.append(bytes(buf))
+            buf = bytearray()
+    if buf:
+        chunks.append(bytes(buf))
+    codec = {"none": lambda b: b, "bz2": bz2.compress, "lz4": lz4f.compress}[compression]
+    t0 = time.perf_counter()
+    packed = [codec(c) for c in chunks]
+    compress_s = time.perf_counter() - t0
+    with open(path, "wb") as f:
+        f.write(b"#ROSBAG V2.0\n")
+        f.write(_bag_record({b"op": b"\x03", b"index_pos": struct.pack("<Q", 0),
+                             b"conn_count": _U32.pack(len(conns)), b"chunk_count": _U32.pack(len(chunks))}, b""))
+        for raw, data in zip(chunks, packed):
+            f.write(_bag_record({b"op": b"\x05", b"compression": compression.encode(),
+                                 b"size": _U32.pack(len(raw))}, data))
+    return dict(chunks=packed, raw_bytes=sum(map(len, chunks)), compress_s=compress_s)
+
+
+def convert_bag(bag, log):
+    """The port's bag_to_flvo with the CLI's defaults (lidar type 1, default
+    LidarParams); returns (counts, seconds)."""
+    from fastlivo_tpu_torch.io import rosbag
+
+    t0 = time.perf_counter()
+    counts = rosbag.bag_to_flvo(bag, log, BAG_TOPICS["lidar"], BAG_TOPICS["imu"], BAG_TOPICS["img"],
+                                lidar_type=1)
+    return counts, time.perf_counter() - t0
+
+
+def same_records(a, b, what):
+    """Two decoded record lists are equal bit for bit; returns their length."""
+    if len(a) != len(b):
+        raise AssertionError(f"{what}: {len(a)} records against {len(b)}")
+    for i, (x, y) in enumerate(zip(a, b)):
+        if type(x) is not type(y) or x.stamp != y.stamp:
+            raise AssertionError(f"{what}: record {i} differs")
+        for name in ("gyr", "acc", "pts", "t_offs_ms", "intensity", "img"):
+            xv, yv = getattr(x, name, None), getattr(y, name, None)
+            if (xv is None) != (yv is None) or (
+                yv is not None and (xv.dtype != yv.dtype or not np.array_equal(xv, yv))
+            ):
+                raise AssertionError(f"{what}: record {i} {name} differs")
+    return len(a)
+
+
+def decode_both(log, cfg):
+    """The log decoded with the config's gates by the native decoder and by
+    the NumPy decoder: equal records, and ms per scan of each (the whole
+    log's decode over its scans)."""
+    from fastlivo_tpu_torch import native
+    from fastlivo_tpu_torch.io import logio
+    from fastlivo_tpu_torch.io.sensors import LidarScan
+
+    lib = native.get_lib()
+    if lib is None:
+        raise AssertionError("6a: the native log codec did not build")
+    with open(log, "rb") as f:
+        buf = f.read()
+    gates = (cfg.preprocess.blind, cfg.preprocess.max_range, cfg.preprocess.point_filter_num)
+    recs, secs = {}, {}
+    for name, fn in (("native", lambda: logio._read_native(memoryview(buf), lib, *gates)),
+                     ("numpy", lambda: logio._read_python(memoryview(buf), *gates))):
+        t0 = time.perf_counter()
+        recs[name] = list(fn())
+        secs[name] = time.perf_counter() - t0
+    n = same_records(recs["native"], recs["numpy"], "6a native against NumPy decode")
+    n_scans = sum(isinstance(r, LidarScan) for r in recs["native"])
+    points = [len(r.pts) for r in recs["native"] if isinstance(r, LidarScan)]
+    return dict(records=n, scans=n_scans, points_per_scan_median=float(np.median(points)),
+                native_ms_per_scan=secs["native"] * 1e3 / n_scans,
+                numpy_ms_per_scan=secs["numpy"] * 1e3 / n_scans)
+
+
+class PipelineSyncs:
+    """Counts host synchronizations inside LivoPipeline.process_scan and
+    flush_scans while the block runs (torch's sync debug mode is on only
+    inside those calls): one (method, count) per outermost call, in order."""
+
+    NAMES = ("process_scan", "flush_scans")
+
+    def __enter__(self):
+        from fastlivo_tpu_torch.models.pipeline import LivoPipeline
+
+        self.cls, self.calls, self._depth = LivoPipeline, [], 0
+        self._saved = {n: getattr(LivoPipeline, n) for n in self.NAMES}
+        for name, fn in self._saved.items():
+            setattr(LivoPipeline, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self.cls, name, fn)
+
+    def _wrap(self, name, fn):
+        def call(pipe, *args, **kw):
+            if self._depth:
+                return fn(pipe, *args, **kw)
+            self._depth += 1
+            try:
+                n, out = syncs_and_result(lambda: fn(pipe, *args, **kw))
+            finally:
+                self._depth -= 1
+            self.calls.append((name, n))
+            return out
+
+        return call
+
+    def per_scan_end(self, skip=BATCH_WARM_GROUPS):
+        """Syncs per scan-end group after the first `skip` (static init and
+        warm-up), the flushes that follow them included."""
+        seen = steps = total = 0
+        for name, n in self.calls:
+            if name == "process_scan":
+                seen += 1
+                steps += seen > skip
+            if seen > skip:
+                total += n
+        return total / max(steps, 1)
+
+
+def phase_bag(device, log_dir):
+    """6a: the phase-4 room log written as a bag (Avia CustomMsg 24,000
+    points per scan, 200 Hz IMU, 640x512 mono8 at 10 Hz, uncompressed
+    chunks), converted by the port's bag_to_flvo, decoded both ways, and
+    run by run.run_log with configs/avia_livo.yaml at its full widths (rig
+    overrides only); launch counts reset just before the run and read just
+    after. Then 6b-6e on the same bag and log."""
+    import torch
+
+    from fastlivo_tpu_torch import run
+    from fastlivo_tpu_torch.io import logio, synthetic
+    from fastlivo_tpu_torch.ops.camera import Pinhole
+
+    t0 = time.perf_counter()
+    seq = synthetic.generate(camera=Pinhole(*CLI_CAMERA), device=device, **CLI_LOG)
+    msgs = bag_messages(seq, np.random.default_rng(6))
+    gen_s = time.perf_counter() - t0
+    bag = os.path.join(log_dir, "avia.bag")
+    t0 = time.perf_counter()
+    write_bag(bag, msgs)
+    write_s = time.perf_counter() - t0
+    bag_mb = os.path.getsize(bag) / 1e6
+    log = os.path.join(log_dir, "avia.flvo")
+    counts, conv_s = convert_bag(bag, log)
+    written = dict(imu=len(seq.imu), scans=len(seq.scans), images=len(seq.frames))
+    if counts != written:
+        raise AssertionError(f"6a: converted {counts}, wrote {written}")
+    cfg = cli_config()
+    decode = decode_both(log, cfg)
+
+    main_dir = os.path.join(log_dir, "bag_main")
+    runs_before = dict(logio.DECODER_RUNS)
+    reset_launches()
+    t0 = time.perf_counter()
+    pipe = run.run_log(log, cfg, out_dir=main_dir, progress=False, device=device)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    decoders = {k: logio.DECODER_RUNS[k] - runs_before[k] for k in runs_before}
+    if decoders != {"native": 1, "numpy": 0}:
+        raise AssertionError(f"6a: the run's log decoders were {decoders}, not the native one")
+    ate, n_poses, n_map = check_cli_run(pipe, main_dir, frames=True)
+    if launches["patch_sample"] <= 0:
+        raise AssertionError("6a: patch_sample was never launched")
+    out = {"6a": dict(
+        bag_mb=bag_mb, bag_messages=len(msgs), counts=counts, generate_s=gen_s, write_s=write_s,
+        convert_s=conv_s, convert_mb_per_s=bag_mb / conv_s, log_mb=os.path.getsize(log) / 1e6,
+        decode=decode, decoders=decoders, health=pipe.health, ate_m=ate, poses=n_poses, map_points=n_map,
+        n_effective_min=min(pipe.n_effective), **step_times(pipe, wall_s), launches=launches,
+        patch_sample_per_frame=launches["patch_sample"] / max(len(pipe.n_selected), 1),
+    )}
+    print(json.dumps({"phase6a_bag": out["6a"]}), flush=True)
+    out["6b"] = phase_bag_codecs(msgs, log_dir)
+    del msgs
+    out["6c"] = phase_bag_batching(log, pipe, device, log_dir)
+    out["6d"] = phase_bag_features(seq, device, log_dir)
+    out["6e"] = phase_bag_colorize(pipe, seq, device)
+    return out
+
+
+def phase_bag_codecs(msgs, log_dir):
+    """6b: the first BAG_CODEC_S seconds of the bag written with
+    uncompressed, lz4 and bz2 chunks; each converts to the same log byte for
+    byte. Records compression, conversion and lz4 decompression rates."""
+    from fastlivo_tpu_torch.io import lz4f
+
+    head = [m for m in msgs if m[2] < BAG_CODEC_S]
+    out, logs = {}, {}
+    for comp in ("none", "lz4", "bz2"):
+        bag = os.path.join(log_dir, f"head_{comp}.bag")
+        stats = write_bag(bag, head, comp)
+        log = os.path.join(log_dir, f"head_{comp}.flvo")
+        counts, conv_s = convert_bag(bag, log)
+        with open(log, "rb") as f:
+            logs[comp] = f.read()
+        out[comp] = dict(bag_mb=os.path.getsize(bag) / 1e6, raw_mb=stats["raw_bytes"] / 1e6,
+                         chunks=len(stats["chunks"]), compress_s=stats["compress_s"], convert_s=conv_s,
+                         counts=counts)
+        if comp == "lz4":
+            t0 = time.perf_counter()
+            n = sum(len(lz4f.decompress(c)) for c in stats["chunks"])
+            dec_s = time.perf_counter() - t0
+            out[comp].update(decompress_mb_per_s=n / 1e6 / dec_s,
+                             compress_mb_per_s=stats["raw_bytes"] / 1e6 / stats["compress_s"])
+    for comp in ("lz4", "bz2"):
+        if logs[comp] != logs["none"] or out[comp]["counts"] != out["none"]["counts"]:
+            raise AssertionError(f"6b: the {comp} bag converts to another log than the uncompressed one")
+    out["identical_logs"] = True
+    out["log_mb"] = len(logs["none"]) / 1e6
+    return out
+
+
+def phase_bag_batching(log, ref, device, log_dir):
+    """6c: the 6a log's first BATCH_SCANS scan-end groups with lio.scan_batch
+    1, 4 and 0: the trajectory rows (scan-end and image rows, the same
+    stamps in the same order) equal the 6a run's first rows within
+    BATCH_TOL_M; host syncs per scan-end group counted in each mode."""
+    import torch
+
+    from fastlivo_tpu_torch import run
+
+    ref_t = [t for t, _, _ in ref.trajectory]
+    ref_p = np.stack([p for _, p, _ in ref.trajectory])
+    out = {}
+    for batch in BATCH_MODES:
+        cfg = cli_config({"lio.scan_batch": batch})
+        t0 = time.perf_counter()
+        with PipelineSyncs() as syncs:
+            pipe = run.run_log(log, cfg, out_dir=os.path.join(log_dir, f"batch_{batch}"),
+                               max_scans=BATCH_SCANS, progress=False, device=device)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        rows = pipe.trajectory
+        n = len(rows)
+        pos = np.stack([p for _, p, _ in rows])
+        err = float(np.abs(pos - ref_p[:n]).max())
+        if n < BATCH_SCANS or [t for t, _, _ in rows] != ref_t[:n] or not err <= BATCH_TOL_M:
+            raise AssertionError(f"6c: scan_batch {batch}: {n} rows, max position gap {err} m")
+        if pipe.health["rejected"] or pipe._pending:
+            raise AssertionError(f"6c: scan_batch {batch}: health {pipe.health}, {len(pipe._pending)} pending")
+        out[f"scan_batch_{batch}"] = dict(
+            rows=n, lio_updates=len(pipe.n_effective), vio_updates=len(pipe.n_selected),
+            max_pos_gap_m=err, syncs_per_scan_end_group=syncs.per_scan_end(),
+            syncs_per_call=syncs.calls, wall_s=wall_s,
+        )
+    return out
+
+
+def ring_sweep(stamp, rings=FEATURE_RINGS, per_ring=FEATURE_PER_RING, buckets=64, half=10.0, floor_z=-1.5):
+    """A 0.1 s sweep of the generator's room (walls at +-half, floor at
+    floor_z, no boxes) from `stamp`, ray-cast ring by ring as a spinning
+    LiDAR records it: elevations -25..15 deg, azimuth 0..360 deg per ring,
+    times evenly over the sweep, each point cast from the pose of its time
+    bucket. Consecutive points are neighbours on a surface, so the LOAM
+    selection keeps most of them; the generator's own scans shuffle points
+    against time."""
+    from fastlivo_tpu_torch.io import synthetic
+    from fastlivo_tpu_torch.io.sensors import LidarScan
+
+    traj = synthetic.default_trajectory()
+    n = rings * per_ring
+    elev = np.repeat(np.radians(np.linspace(-25.0, 15.0, rings)), per_ring)
+    azim = np.tile(np.linspace(0.0, 2 * np.pi, per_ring, endpoint=False), rings)
+    d_body = np.stack([np.cos(elev) * np.cos(azim), np.cos(elev) * np.sin(azim), np.sin(elev)], 1)
+    bucket = np.arange(n) * buckets // n
+    rng_hit = np.empty(n)
+    for b in range(buckets):
+        sel = bucket == b
+        rot, pos = traj.pose(stamp + (b + 0.5) * 0.1 / buckets)
+        d = d_body[sel] @ rot.T
+        with np.errstate(divide="ignore"):
+            hits = [(np.where(d[:, a] > 0, half, -half) - pos[a]) / d[:, a] for a in (0, 1)]
+            hits.append(np.where(d[:, 2] < 0, (floor_z - pos[2]) / d[:, 2], np.inf))
+        hits = np.stack(hits)
+        rng_hit[sel] = np.where(hits > 0, hits, np.inf).min(axis=0)
+    t_offs_ms = (np.arange(n) * (100.0 / n)).astype(np.float32)
+    return LidarScan(stamp=stamp, pts=(rng_hit[:, None] * d_body).astype(np.float32), t_offs_ms=t_offs_ms)
+
+
+def phase_bag_features(seq, device, log_dir):
+    """6d: the 6a bag's first FEATURE_S seconds with every sweep replaced by
+    a ring sweep (`ring_sweep`, 24,000 points), converted as 6a, then
+    FEATURE_SCANS scan-end groups with preprocess.feature_extract_en 1.
+    Gates: every scan keeps more than FEATURE_KEPT_MIN of its points, no
+    rejected update, n_effective >= min_effective on every update, every
+    state finite. Records the share of points kept, classify_features host
+    ms per scan and the ATE (not gated)."""
+    import types
+
+    import torch
+
+    from fastlivo_tpu_torch import run
+    from fastlivo_tpu_torch.io import features, logio
+    from fastlivo_tpu_torch.io.sensors import LidarScan
+
+    head = types.SimpleNamespace(
+        imu=[s for s in seq.imu if s.stamp < FEATURE_S],
+        scans=[ring_sweep(s.stamp) for s in seq.scans if s.stamp < FEATURE_S],
+        frames=[f for f in seq.frames if f.stamp < FEATURE_S],
+    )
+    bag = os.path.join(log_dir, "rings.bag")
+    write_bag(bag, bag_messages(head, np.random.default_rng(6)))
+    log = os.path.join(log_dir, "rings.flvo")
+    counts, conv_s = convert_bag(bag, log)
+
+    cfg = cli_config({"preprocess.feature_extract_en": 1})
+    shares = []
+    p = cfg.preprocess
+    for rec in logio.read_log(log, blind=p.blind, max_range=p.max_range, point_filter_num=p.point_filter_num):
+        if isinstance(rec, LidarScan) and len(shares) < FEATURE_SCANS:
+            plane, edge = features.classify_features(rec)
+            shares.append((int((plane | edge).sum()), len(rec.pts)))
+    kept_min = min(k / n for k, n in shares)
+    if not kept_min > FEATURE_KEPT_MIN:
+        raise AssertionError(f"6d: a scan keeps only {kept_min:.3f} of its points")
+
+    out_dir = os.path.join(log_dir, "features")
+    pipe = run.run_log(log, cfg, out_dir=out_dir, max_scans=FEATURE_SCANS, progress=False, device=device)
+    torch.cuda.synchronize()
+    if pipe.health["rejected"] or not pipe.n_effective:
+        raise AssertionError(f"6d: health {pipe.health}, {len(pipe.n_effective)} updates")
+    if min(pipe.n_effective) < pipe.step_cfg.lio_cfg.min_effective:
+        raise AssertionError(f"6d: n_effective {pipe.n_effective} below min_effective")
+    if not all(bool(torch.all(torch.isfinite(x))) for x in pipe.state):
+        raise AssertionError("6d: non-finite filter state")
+    ate, n_poses = tum_ate(os.path.join(out_dir, "tum.txt"))
+    host_ms = [s * 1e3 for s in pipe.timer.samples["features"]]
+    return dict(scans=FEATURE_SCANS, counts=counts, convert_s=conv_s, lio_updates=len(pipe.n_effective),
+                health=pipe.health, n_effective=pipe.n_effective,
+                min_effective=pipe.step_cfg.lio_cfg.min_effective,
+                kept_share=sum(k for k, _ in shares) / sum(n for _, n in shares), kept_share_min=kept_min,
+                points_per_scan=float(np.mean([n for _, n in shares])),
+                classify_host_ms_median=float(np.median(host_ms)), classify_host_ms_max=float(max(host_ms)),
+                ate_m=ate, poses=n_poses)
+
+
+def phase_bag_colorize(pipe, seq, device):
+    """6e: colorize_cloud of the 6a run's final map cloud through the log's
+    last frame (true camera pose), on the card and on the CPU: the same
+    visible mask, values within COLOR_TOL, some points visible."""
+    import torch
+
+    from fastlivo_tpu_torch.io import export, synthetic
+    from fastlivo_tpu_torch.ops.camera import Pinhole
+
+    cloud = export.map_to_cloud(pipe.map)
+    frame = seq.frames[-1]
+    rot_wi, pos = synthetic.default_trajectory().pose(frame.stamp)
+    rcw = synthetic.R_IC_FORWARD.T @ rot_wi.T
+    pcw = -rcw @ pos
+    cam = Pinhole(*CLI_CAMERA)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vals_g, vis_g = export.colorize_cloud(cloud, frame.img, rcw, pcw, cam, device=device)
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    vals_c, vis_c = export.colorize_cloud(cloud, frame.img, rcw, pcw, cam, device="cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    err = float(np.abs(vals_g[vis_g] - vals_c[vis_c]).max()) if vis_g.any() and np.array_equal(vis_g, vis_c) else None
+    if not np.array_equal(vis_g, vis_c) or err is None or not err <= COLOR_TOL:
+        raise AssertionError(f"6e: card and CPU differ (visible {int(vis_g.sum())} / {int(vis_c.sum())}, err {err})")
+    return dict(points=len(cloud), visible=int(vis_g.sum()), max_abs_err=err, card_ms=card_ms, cpu_ms=cpu_ms,
+                frame_stamp=frame.stamp)
+
+
 def main(argv=None):
     import argparse
 
@@ -1526,6 +2045,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    from fastlivo_tpu_torch import native
     from fastlivo_tpu_torch.ops import cuda_build
 
     device = torch.device("cuda")
@@ -1533,8 +2053,14 @@ def main(argv=None):
     print(ident, flush=True)
     t0 = time.perf_counter()
     libs = cuda_build.build_all()
-    print(json.dumps({"build_s": time.perf_counter() - t0,
-                      "libraries": sorted(p.name for p in libs.values())}), flush=True)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_lib = native.get_lib()  # g++, for the log codec of phase 6
+    if host_lib is None:
+        raise AssertionError("the native host library (fastlivo_tpu_torch/native/src/livo_host.cc) did not build")
+    print(json.dumps({"build_s": build_s, "libraries": sorted(p.name for p in libs.values()),
+                      "native_build_s": time.perf_counter() - t0,
+                      "native_library": os.path.basename(host_lib._name)}), flush=True)
 
     k1 = phase_kernels(device)
     psr = phase_patch_sample(device)
@@ -1568,6 +2094,13 @@ def main(argv=None):
     print(json.dumps({"phase5c_matcher": matcher, "gpu": ident}), flush=True)
     gnss_launches = gnss["launches"]
 
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bag_") as log_dir:
+        t0 = time.perf_counter()
+        bag = phase_bag(device, log_dir)
+        bag["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"phase6_bag": bag, "gpu": ident}, default=str), flush=True)
+    bag_launches = bag["6a"]["launches"]
+
     kernels = []
     for r in k1:
         kernels.append(dict(
@@ -1577,6 +2110,7 @@ def main(argv=None):
             launches=livo["launches"]["extract_windows"], on_main_path=False,
             launches_cli=cli_launches["extract_windows"],
             launches_5b=gnss_launches["extract_windows"],
+            launches_6a=bag_launches["extract_windows"],
             max_abs_err=r["max_abs_err"],
             ms=r["kernel_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
@@ -1598,6 +2132,8 @@ def main(argv=None):
             launches_cli_per_frame=cli["main"]["patch_sample_per_frame"],
             launches_5b=gnss_launches["patch_sample"],
             launches_5b_per_frame=gnss["patch_sample_per_frame"],
+            launches_6a=bag_launches["patch_sample"],
+            launches_6a_per_frame=bag["6a"]["patch_sample_per_frame"],
             max_abs_err=r["max_abs_err"],
             ms=r["kernel_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
@@ -1611,8 +2147,8 @@ def main(argv=None):
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"gpu": ident, "kernels": kernels, "livo": livo, "determinism": det, "cli": cli,
-                       "phase5a_loop": loop, "phase5b_gnss": gnss, "phase5c_matcher": matcher},
-                      f, indent=1)
+                       "phase5a_loop": loop, "phase5b_gnss": gnss, "phase5c_matcher": matcher,
+                       "phase6_bag": bag}, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,21 +22,8 @@ import numpy as np
 from fastlivo_tpu_torch import device as _device
 from fastlivo_tpu_torch.backend.pose_graph import PoseGraph
 from fastlivo_tpu_torch.backend.std_loop import StdConfig, StdLoopDetector
+from fastlivo_tpu_torch.native import voxel_mask
 from fastlivo_tpu_torch.ops.camera import Pinhole
-
-
-def voxel_mask(pts: np.ndarray, leaf: float) -> np.ndarray:
-    """First-point-per-voxel boolean mask, equal bit for bit to the JAX
-    package's native `flvo_voxel_mask`: keys from floor(p * (1/leaf)) in
-    f32, each axis wrapped to 21 bits, first occurrence kept."""
-    pts = np.ascontiguousarray(pts, np.float32)
-    inv = np.float32(1.0) / np.float32(leaf)
-    k = np.floor(pts * inv).astype(np.int64) & 0x1FFFFF
-    key = (k[:, 0] << 42) | (k[:, 1] << 21) | k[:, 2]
-    _, first = np.unique(key, return_index=True)
-    mask = np.zeros(len(pts), bool)
-    mask[first] = True
-    return mask
 
 
 @dataclass

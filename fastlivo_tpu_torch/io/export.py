@@ -1,5 +1,5 @@
-"""Trajectory and point-cloud export (port of fastlivo_tpu/io/export.py;
-`colorize_cloud` is a later slice): TUM trajectories and PCD map dumps."""
+"""Trajectory and point-cloud export (port of fastlivo_tpu/io/export.py):
+TUM trajectories, PCD map dumps and the colorized cloud."""
 
 from __future__ import annotations
 
@@ -7,6 +7,8 @@ from typing import Iterable, Tuple
 
 import numpy as np
 import torch
+
+from fastlivo_tpu_torch import device as _device
 
 
 def write_tum(path: str, trajectory: Iterable[Tuple[float, np.ndarray, np.ndarray]]) -> None:
@@ -75,6 +77,41 @@ def read_pcd(path: str) -> np.ndarray:
     else:
         data = np.loadtxt(raw[end:].decode().splitlines(), dtype=np.float32).reshape(n, n_fields)
     return data[:, :3].copy()
+
+
+def colorize_cloud(
+    pts_world: np.ndarray,
+    img: np.ndarray,
+    rcw: np.ndarray,
+    pcw: np.ndarray,
+    cam,
+    device=None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-point intensity/color by reprojection into the current frame
+    (parity with publish_frame_world_rgb / RGBpointBodyToWorld, which colors
+    the world cloud through the live camera). Projection and bilinear
+    sampling run on `device` (None means the GPU); the camera transform is
+    taken in the inputs' NumPy result type, one elementwise op at a time, so
+    the card and the CPU give the same bits. Returns (values (N,) or (N, C),
+    visible_mask (N,)) as NumPy arrays."""
+    from fastlivo_tpu_torch.ops import image as img_ops
+
+    dev = _device.resolve(device)
+    dtype = torch.float64 if np.result_type(pts_world, rcw, pcw) == np.float64 else torch.float32
+    p = torch.tensor(np.asarray(pts_world), dtype=dtype, device=dev)
+    r = torch.tensor(np.asarray(rcw), dtype=dtype, device=dev)
+    p_c = p[:, 0:1] * r[:, 0] + p[:, 1:2] * r[:, 1] + p[:, 2:3] * r[:, 2]
+    p_c = p_c + torch.tensor(np.asarray(pcw), dtype=dtype, device=dev)
+    uv = cam.project(p_c.to(torch.float32))
+    vis = (p_c[:, 2] > 0.1) & (
+        (uv[:, 0] >= 1) & (uv[:, 0] < cam.width - 1) & (uv[:, 1] >= 1) & (uv[:, 1] < cam.height - 1)
+    )
+    image = torch.tensor(np.asarray(img), dtype=torch.float32, device=dev)
+    if image.ndim == 2:
+        vals = img_ops.bilinear(image, uv)
+    else:
+        vals = torch.stack([img_ops.bilinear(image[..., c], uv) for c in range(image.shape[-1])], dim=-1)
+    return vals.cpu().numpy(), vis.cpu().numpy()
 
 
 def map_to_cloud(lidar_map, max_points: int | None = None) -> np.ndarray:

@@ -1,6 +1,8 @@
 """FLVO measurement logs: the serialized, replayable sensor stream (port of
-fastlivo_tpu/io/logio.py with the NumPy decoder; the native codec is a
-later slice).
+fastlivo_tpu/io/logio.py). Writing is Python; reading uses the native C++
+indexer and decoder (`fastlivo_tpu_torch.native`) when its library builds
+and the NumPy decoder otherwise, with the same records either way.
+`DECODER_RUNS` counts the streams each decoder served.
 
 Format: b"FLVO", u32 version, then records in time order, each a type byte
 and a little-endian f64 stamp:
@@ -11,16 +13,21 @@ and a little-endian f64 stamp:
 
 from __future__ import annotations
 
+import ctypes
 import mmap
 import struct
 from typing import Iterator, List, Union
 
 import numpy as np
 
+from fastlivo_tpu_torch import native
 from fastlivo_tpu_torch.io.sensors import ImageFrame, ImuSample, LidarScan
 
 MAGIC = b"FLVO"
 VERSION = 1
+
+# read_log streams served by each decoder
+DECODER_RUNS = {"native": 0, "numpy": 0}
 
 
 class LogWriter:
@@ -69,7 +76,8 @@ def read_log(
 ) -> Iterator[Union[ImuSample, LidarScan, ImageFrame]]:
     """Stream records in file order, LiDAR filtered and decimated at decode
     time (every `point_filter_num`-th point, range in (blind, max_range),
-    finite). The log is memory-mapped and decoded from zero-copy views."""
+    finite). The log is memory-mapped and decoded from zero-copy views, by
+    the native decoder when its library builds."""
     with open(path, "rb") as f:
         try:
             mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
@@ -77,7 +85,13 @@ def read_log(
             mm = f.read()
         try:
             buf = memoryview(mm)
-            yield from _read_python(buf, blind, max_range, point_filter_num)
+            lib = native.get_lib()
+            if lib is not None:
+                DECODER_RUNS["native"] += 1
+                yield from _read_native(buf, lib, blind, max_range, point_filter_num)
+            else:
+                DECODER_RUNS["numpy"] += 1
+                yield from _read_python(buf, blind, max_range, point_filter_num)
         finally:
             try:
                 buf.release()
@@ -87,6 +101,50 @@ def read_log(
                 # A propagating exception's traceback can keep decoder
                 # views alive; the mapping is then released at GC instead.
                 pass
+
+
+def _read_native(buf, lib, blind, max_range, filter_num):
+    # Zero-copy pointer into the mmapped (or bytes) buffer for the C ABI.
+    view = np.frombuffer(buf, np.uint8)
+    ptr = view.ctypes.data_as(ctypes.POINTER(ctypes.c_char))
+    n = lib.flvo_index(ptr, len(view), None, 0)
+    if n < 0:
+        raise ValueError("malformed FLVO log")
+    idx = (native.RecordIndex * n)()
+    lib.flvo_index(ptr, len(view), idx, n)
+    for r in idx:
+        if r.type == 0:
+            gyr = np.zeros(3)
+            acc = np.zeros(3)
+            lib.flvo_decode_imu(
+                ptr, r.offset,
+                gyr.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                acc.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            )
+            yield ImuSample(stamp=r.stamp, gyr=gyr, acc=acc)
+        elif r.type == 1:
+            cap = int(r.count)
+            xyz = np.zeros((cap, 3), np.float32)
+            t_ms = np.zeros(cap, np.float32)
+            inten = np.zeros(cap, np.float32)
+            kept = lib.flvo_decode_lidar(
+                ptr, r.offset, blind, max_range, filter_num,
+                xyz.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                t_ms.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                inten.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            )
+            yield LidarScan(
+                stamp=r.stamp,
+                pts=xyz[:kept].copy(),
+                t_offs_ms=t_ms[:kept].copy(),
+                intensity=inten[:kept].copy(),
+            ).sort_by_time()
+        else:
+            h = r.count >> 16
+            w = r.count & 0xFFFF
+            img = np.zeros(h * w, np.uint8)
+            lib.flvo_decode_image(ptr, r.offset, img.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+            yield ImageFrame(stamp=r.stamp, img=img.reshape(h, w).astype(np.float32))
 
 
 def _read_python(buf, blind, max_range, filter_num):

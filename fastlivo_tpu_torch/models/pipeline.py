@@ -1,8 +1,8 @@
 """The per-scan and per-frame programs of the single-device LIVO cycle and
 the host pipeline that drives them (port of fastlivo_tpu/models/pipeline.py:
 `StepConfig` with `from_config`, `lio_scan_step` with every measurement
-model, `vio_scan_step`, `bootstrap_map`, `step_summary` and
-`LivoPipeline`).
+model, `lio_scan_multi`, `vio_scan_step`, `bootstrap_map`, `step_summary`
+and `LivoPipeline`).
 
 The chain per scan is the JAX package's:
 
@@ -12,10 +12,10 @@ The chain per scan is the JAX package's:
 `LivoPipeline` also carries the back end: GNSS fusion (an (18,18)/(18,)
 observation block per scan, linearized at the propagated prior), the STD
 loop-closure back end with its pose graph and visual gate, loop-corrected
-map re-anchoring (`reanchor_map`) and the annotated-frame dump.
-`lio_scan_multi`, the multi-device branches and scan batching are later
-slices (ROADMAP.md section 1); the pipeline raises `NotImplementedError`
-for each.
+map re-anchoring (`reanchor_map`), the annotated-frame dump and the
+deferred-fetch scan batching of `lio.scan_batch`. The multi-device
+branches are a later slice (ROADMAP.md section 1, item 14); the pipeline
+raises `NotImplementedError` for them.
 """
 
 from __future__ import annotations
@@ -213,6 +213,35 @@ def lio_scan_step(
     return posterior, lidar_map, info, (p_w, ds_mask), summary
 
 
+def lio_scan_multi(
+    state: NavState,
+    lidar_map: vm.VoxelHashMap,
+    scans: ScanInput,
+    rot_il: torch.Tensor,
+    t_il: torch.Tensor,
+    cfg: StepConfig,
+    axis_name: Optional[str] = None,
+) -> Tuple[NavState, vm.VoxelHashMap, torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """K scan-end measurement updates chained: `scans` is a ScanInput whose
+    leaves carry a leading K axis. Returns (posterior state, map, summaries
+    (K, 11), (world clouds (K, N, 3), masks (K, N))), the results of K
+    sequential `lio_scan_step` calls."""
+    summaries, clouds, masks = [], [], []
+    for k in range(scans.pts.shape[0]):
+        scan = ScanInput(
+            pts=scans.pts[k], t_offs=scans.t_offs[k], mask=scans.mask[k],
+            imu=imu_mod.ImuWindow(*(x[k] for x in scans.imu)),
+            t_end=scans.t_end[k], acc_scale=scans.acc_scale[k],
+        )
+        state, lidar_map, _, (p_w, msk), summary = lio_scan_step(
+            state, lidar_map, scan, rot_il, t_il, cfg, axis_name=axis_name
+        )
+        summaries.append(summary)
+        clouds.append(p_w)
+        masks.append(msk)
+    return state, lidar_map, torch.stack(summaries), (torch.stack(clouds), torch.stack(masks))
+
+
 def step_summary(state_out: NavState, info, jump: torch.Tensor, accept: torch.Tensor) -> torch.Tensor:
     """[pos(3), quat wxyz(4), n_eff, jump_m, accepted, res_mean]."""
     q = so3.rot_to_quat(state_out.rot)
@@ -293,16 +322,19 @@ class LivoPipeline:
     synchronizer (`io.sync`), one group at a time.
 
     `device=None` means the GPU and raises without one. Every processed
-    update reads one small summary back to the host (pose, and the
-    effective count or the selected-patch count), kept in `trajectory`,
-    `n_effective` and `n_selected`."""
+    update leaves one small summary (pose, and the effective count or the
+    selected-patch count), kept in `trajectory`, `n_effective` and
+    `n_selected`. With `lio.scan_batch` 1 each summary is read back when
+    its update runs. Otherwise (and without GNSS, whose observation needs
+    each scan's prior on the host) the updates are dispatched without a
+    read: their summaries go into one device buffer, read in one copy by
+    `flush_scans` every `scan_batch` scans, or, with 0, only at `finish`,
+    a checkpoint or `reanchor_map`."""
 
     def __init__(self, cfg, dtype=torch.float32, device=None):
         self.device = _device.resolve(device)
         if cfg.parallel.n_devices > 1 or cfg.parallel.map_sharded:
             raise _not_ported("multi-device execution (parallel.n_devices, parallel.map_sharded)", 14)
-        if cfg.lio.scan_batch != 1:
-            raise _not_ported("deferred-fetch scan batching (lio.scan_batch != 1)", 9)
         self.cfg = cfg
         self.step_cfg = StepConfig.from_config(cfg)
         self.dtype = dtype
@@ -368,6 +400,24 @@ class LivoPipeline:
             if cfg.gnss.rtk_file:
                 self.gnss.load_rtk_file(cfg.gnss.rtk_file)
 
+        # Deferred-fetch batching. The pending queue holds, in dispatch
+        # order, ("scan", t_abs, cloud, mask, last_img) and ("img", t_abs);
+        # row i of _sum_buf is entry i's summary (zero-padded to 11). When a
+        # scan is rejected mid-batch, the VIO frames dispatched after it see
+        # its masked-off world cloud (an empty photometric update) instead
+        # of the host rollback to the last accepted cloud; both recover at
+        # the next accepted scan. Clouds are kept for the loop back end only:
+        # with scan_batch 0 a whole run's clouds would pin device memory.
+        self.scan_batch = int(cfg.lio.scan_batch)
+        self._batch_eligible = self.scan_batch != 1 and not cfg.gnss.gnss_en
+        self._pending: list = []
+        self._pending_n_scans = 0
+        self._retain_clouds = self.loop_backend is not None
+        self._sum_cap = 65536  # deferred measurements per flush (1.8 h at 10 Hz)
+        self._batch_prev_cloud = None
+        if self._batch_eligible:
+            self._sum_buf = torch.zeros((self._sum_cap, 11), dtype=dtype, device=dev)
+
     def _init_feed(self, scan: ScanInput):
         mask = _host(scan.imu.mask)
         if self.initializer.push(_host(scan.imu.gyr)[mask], _host(scan.imu.acc)[mask]):
@@ -403,6 +453,25 @@ class LivoPipeline:
             self.map = bootstrap_map(self.map, scan, self.state, self.rot_il, self.t_il, self.step_cfg)
             self._epoch_stamps.append(t_abs)
             self.first_scan = False
+            return None
+
+        if self._batch_eligible:
+            # Dispatch now, read the summary at the next flush.
+            if self._pending_n_scans == 0:
+                # Rollback target if every scan of this batch is rejected.
+                self._batch_prev_cloud = (self.world_cloud, self.world_mask)
+            self.state, self.map, _, (self.world_cloud, self.world_mask), summary = lio_scan_step(
+                self.state, self.map, scan, self.rot_il, self.t_il, self.step_cfg
+            )
+            self._epoch_stamps.append(t_abs)
+            self._defer(summary)
+            if self._retain_clouds:
+                self._pending.append(("scan", t_abs, self.world_cloud, self.world_mask, self._last_vio_img))
+            else:
+                self._pending.append(("scan", t_abs, None, None, None))
+            self._pending_n_scans += 1
+            if len(self._pending) >= self._sum_cap or 0 < self.scan_batch <= self._pending_n_scans:
+                self.flush_scans()
             return None
 
         prev_cloud = (self.world_cloud, self.world_mask)
@@ -459,6 +528,16 @@ class LivoPipeline:
         )
         if self.cfg.runtime.img_save_en:
             self._dump_annotated_frame(img)
+        if self._batch_eligible:
+            self.vio_before_lio += not (self.n_effective or self._pending_n_scans)
+            self._defer(summary)
+            self._pending.append(("img", t_abs))
+            # Backstop for image-heavy streams; the scan count normally sets
+            # the flush cadence.
+            n = len(self._pending)
+            if n >= self._sum_cap or (self.scan_batch > 0 and n >= 8 * self.scan_batch + 8):
+                self.flush_scans()
+            return None
         self.n_selected.append(int(self._record(t_abs, summary)[7]))
         self.vio_before_lio += not self.n_effective
         return info
@@ -479,9 +558,52 @@ class LivoPipeline:
         )
         self._img_frame_idx += 1
 
+    def _defer(self, summary: torch.Tensor):
+        """Queue the summary of the update about to join the pending queue
+        (a device-side copy, no host read)."""
+        self._sum_buf[len(self._pending), : summary.shape[0]] = summary
+
     def flush_scans(self):
-        """Nothing to drain: every update reads its summary when it runs
-        (the deferred-fetch batching of lio.scan_batch is not ported)."""
+        """Drain the pending (already dispatched) updates: one host read of
+        their summaries, then the per-update bookkeeping in dispatch order
+        (trajectory, counters, health, the loop back end on accepted scans,
+        the world-cloud rollback)."""
+        if not self._pending:
+            return
+        pending, self._pending = self._pending, []
+        self._pending_n_scans = 0
+        # A copy: on the CPU, .cpu() would alias the buffer the next
+        # batch overwrites.
+        rows = self._sum_buf[: len(pending)].cpu().numpy().copy()
+        last_ok = None
+        for k, entry in enumerate(pending):
+            kind, t_abs = entry[0], entry[1]
+            s = rows[k]
+            self.trajectory.append((t_abs, s[0:3], s[3:7]))
+            if kind == "img":
+                self.n_selected.append(int(s[7]))
+                continue
+            _, _, cloud, mask, img = entry
+            n_eff, accepted = int(s[7]), bool(s[9] > 0.5)
+            self.n_effective.append(n_eff)
+            if n_eff < self._min_effective:
+                self.health["low_constraint"] += 1
+            if not accepted:
+                self.health["rejected"] += 1
+                self.health["resets"] += 1
+                continue
+            last_ok = k
+            if cloud is not None:  # kept only for the loop back end
+                rot = so3.quat_to_rot(torch.as_tensor(s[3:7], dtype=torch.float64)).numpy()
+                self.loop_backend.on_scan(rot, s[0:3], cloud[mask].cpu().numpy(), stamp=t_abs, img=img)
+        if not self._retain_clouds:
+            # No clouds were kept; world_cloud already holds the last
+            # dispatched scan's (empty-masked if it was rejected).
+            return
+        if last_ok is not None:
+            self.world_cloud, self.world_mask = pending[last_ok][2:4]
+        elif any(e[0] == "scan" for e in pending):
+            self.world_cloud, self.world_mask = self._batch_prev_cloud
 
     def reanchor_map(self) -> bool:
         """Re-anchor the live voxel arena with the loop-corrected keyframe
@@ -492,6 +614,7 @@ class LivoPipeline:
             return False
         if not self._epoch_stamps:
             return False
+        self.flush_scans()
         g = self.loop_backend.graph
         rots_c, trans_c = self.loop_backend.corrected_trajectory()
         rots_d = np.asarray(g.rots)
@@ -530,6 +653,7 @@ class LivoPipeline:
         `tum.txt`, `loop_tum.txt` (the loop-corrected keyframes, when the
         back end ran) and `map.pcd` to out_dir (when given). Returns the
         corrected keyframe trajectory (rots, trans), or None."""
+        self.flush_scans()
         corrected = None
         if self.loop_backend is not None:
             self.loop_backend.finish()

@@ -21,12 +21,14 @@ import math
 import torch
 
 _FLIP = 0x7FFFFFFF
+_F32_TINY = torch.finfo(torch.float32).tiny  # the smallest normal f32
 
 
 def f32_sort_key(x: torch.Tensor) -> torch.Tensor:
-    """Monotonic f32 -> int32: a < b <=> key(a) < key(b). +0.0 and -0.0
-    share a key. NaN keys are meaningless: replace NaNs first."""
-    x = x + 0.0  # canonicalize -0.0 -> +0.0
+    """Monotonic f32 -> int32: a < b <=> key(a) < key(b). Subnormals are
+    flushed to zero first, as XLA does, so they, +0.0 and -0.0 all share
+    zero's key. NaN keys are meaningless: replace NaNs first."""
+    x = torch.where(x.abs() < _F32_TINY, 0.0, x)
     b = x.contiguous().view(torch.int32)
     flip = torch.where(x >= 0, 0, _FLIP).to(torch.int32)
     return torch.bitwise_xor(b, flip)

@@ -21,10 +21,10 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from fastlivo_tpu_torch.io import logio
+from fastlivo_tpu_torch.io import features, logio
 from fastlivo_tpu_torch.io.sensors import ImageFrame, ImuSample, LidarScan
 from fastlivo_tpu_torch.io.sync import LidarMeasureGroup, MeasurementSynchronizer, WindowBuilder
-from fastlivo_tpu_torch.models.pipeline import LivoPipeline, ScanInput, _not_ported
+from fastlivo_tpu_torch.models.pipeline import LivoPipeline, ScanInput
 from fastlivo_tpu_torch.utils import checkpoint as ckpt
 from fastlivo_tpu_torch.utils.config import load_config
 from fastlivo_tpu_torch.utils.timing import StageTimer
@@ -38,7 +38,10 @@ def replay(
     """The log's measurement groups in order, each with its fixed-shape
     input (NumPy leaves, acc_scale taken from `pipe` when the group is
     built) and its absolute update time. After the groups that each record
-    completes it yields None: the runner stops only there."""
+    completes it yields None: the runner stops only there. With
+    `preprocess.feature_extract_en`, each scan keeps only its plane and edge
+    points (`io.features.classify_features`, the reference's LOAM-style
+    give_feature mode) when more than 100 of them survive."""
     sync = MeasurementSynchronizer(
         img_enabled=cfg.vio.img_enable,
         img_delta_time=cfg.vio.delta_time,
@@ -56,6 +59,15 @@ def replay(
         if isinstance(rec, ImuSample):
             sync.push_imu(rec)
         elif isinstance(rec, LidarScan):
+            if cfg.preprocess.feature_extract_en:
+                with timer.stage("features"):
+                    plane, edge = features.classify_features(rec)
+                keep = plane | edge
+                if keep.sum() > 100:
+                    rec = LidarScan(
+                        stamp=rec.stamp, pts=rec.pts[keep], t_offs_ms=rec.t_offs_ms[keep],
+                        intensity=None if rec.intensity is None else rec.intensity[keep],
+                    )
             sync.push_lidar(rec)
         elif isinstance(rec, ImageFrame):
             sync.push_image(rec)
@@ -88,8 +100,6 @@ def run_log(
     pipeline after the run. With `resume_from`, every group before the
     checkpoint only advances the synchronizer; `max_scans` stops after the
     record that completes that many scan-end groups."""
-    if cfg.preprocess.feature_extract_en:
-        raise _not_ported("LOAM-style feature extraction (preprocess.feature_extract_en)", 13)
     if out_dir is not None:
         cfg.runtime.out_dir = out_dir
 
@@ -143,6 +153,9 @@ def run_log(
                     f"{pos[2]:+7.2f}) n_eff={pipe.n_effective[-1]}"
                 )
             if checkpoint_every and checkpoint_path and n_scans % checkpoint_every == 0:
+                # Batched mode: apply the queued updates first, so the saved
+                # state matches the n_scans counter.
+                pipe.flush_scans()
                 ckpt.save_pipeline(checkpoint_path, pipe, meta={"n_scans": n_scans})
     if profile_dir is not None:
         os.makedirs(profile_dir, exist_ok=True)

@@ -53,7 +53,8 @@ def test_every_module_is_walked():
     for mod in ("run", "ops.plane", "io.sensors", "io.sync", "io.logio", "io.export", "io.synthetic",
                 "utils.config", "utils.checkpoint", "utils.timing", "utils.metrics", "ops.earth",
                 "models.gnss", "io.annotate", "backend.std_loop", "backend.pose_graph",
-                "backend.loop_manager", "backend.superpoint_lightglue", "backend.visual_verify"):
+                "backend.loop_manager", "backend.superpoint_lightglue", "backend.visual_verify",
+                "io.rosbag", "io.lz4f", "io.preprocess", "io.features", "native", "ops.frustum"):
         assert f"fastlivo_tpu_torch.{mod}" in names
 
 
@@ -108,11 +109,13 @@ def test_back_end_needs_a_gpu_unless_told(name):
     [
         ({"parallel.n_devices": 2}, 14),
         ({"parallel.map_sharded": True}, 14),
-        ({"lio.scan_batch": 0}, 9),
-        ({"lio.scan_batch": 4}, 9),
+        ({"parallel.n_devices": 4}, 14),
+        ({"parallel.n_devices": 2, "parallel.map_sharded": True}, 14),
     ],
 )
 def test_out_of_scope_switches_raise(setting, item):
+    """Only the multi-device switches are left unported (lio.scan_batch is
+    ported: tests/test_torch_scan_batch.py)."""
     from fastlivo_tpu_torch.models.pipeline import LivoPipeline
     from fastlivo_tpu_torch.utils.config import load_config
 
@@ -122,17 +125,27 @@ def test_out_of_scope_switches_raise(setting, item):
 
 
 def test_out_of_scope_runner_and_reanchor_raise(tmp_path):
-    """Feature extraction still raises; reanchor_map is ported and, without
-    a loop back end, has nothing to apply."""
+    """The only NotImplementedErrors left in the port are the multi-device
+    ones; feature extraction and scan batching run, and reanchor_map,
+    without a loop back end, has nothing to apply."""
     from fastlivo_tpu_torch import run
+    from fastlivo_tpu_torch.io import logio, synthetic
     from fastlivo_tpu_torch.models.pipeline import LivoPipeline
     from fastlivo_tpu_torch.utils.config import load_config
 
-    cfg = load_config(None, {"map.capacity": 1 << 10, "vio.img_enable": False})
+    for path in PKG.rglob("*.py"):
+        for line in path.read_text().splitlines():
+            if "raise NotImplementedError" in line or "raise _not_ported" in line:
+                assert "_NO_MULTI_DEVICE" in line or "item 14" in line or ", 14)" in line, f"{path}: {line}"
+    cfg = load_config(None, {"map.capacity": 1 << 10, "vio.img_enable": False, "lio.scan_batch": 0,
+                             "preprocess.feature_extract_en": True, "imu.init_count": 5,
+                             "lio.max_points": 1024, "imu.imu_int_frame": 32})
     assert LivoPipeline(cfg, device="cpu").reanchor_map() is False
-    cfg.preprocess.feature_extract_en = True
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run.run_log(str(tmp_path / "none.flvo"), cfg, device="cpu")
+    log = str(tmp_path / "short.flvo")
+    logio.write_sequence(log, synthetic.generate(duration=0.6, imu_rate=100.0, pts_per_scan=500, seed=1,
+                                                 device="cpu"))
+    pipe = run.run_log(log, cfg, progress=False, device="cpu")
+    assert len(pipe.timer.samples["features"]) == 6 and not pipe._pending
 
 
 def test_back_end_constructs_with_jax_blocked(tmp_path):

@@ -203,8 +203,7 @@ def test_voxel_downsample():
 
 def test_f32_keys_and_scatter_min():
     rng = np.random.default_rng(17)
-    # Normal floats only: XLA:CPU flushes denormals to zero, torch keeps
-    # them, so a denormal's key differs (a known, harmless divergence).
+    # Normal floats here; subnormals have their own test below.
     x = np.concatenate([rng.normal(size=500) * 1e3, [0.0, -0.0, np.inf, -np.inf, 1e-30]]).astype(np.float32)
     k_t = TS.f32_sort_key(torch.from_numpy(x))
     np.testing.assert_array_equal(k_t.numpy(), np.asarray(JS.f32_sort_key(jnp.asarray(x))))
@@ -215,6 +214,30 @@ def test_f32_keys_and_scatter_min():
     got = TS.scatter_min_f32(37, torch.from_numpy(idx), torch.from_numpy(vals)).numpy()
     want = np.asarray(JS.scatter_min_f32(37, jnp.asarray(idx), jnp.asarray(vals)))
     np.testing.assert_array_equal(got, want)
+
+
+def test_f32_keys_flush_subnormals():
+    """XLA:CPU flushes f32 subnormals to zero before the bit encoding; the
+    port does the same, so every subnormal (either sign, down to the
+    smallest) shares zero's key and the keys equal the JAX package's
+    exactly. The smallest normals keep their own keys."""
+    rng = np.random.default_rng(18)
+    tiny = np.finfo(np.float32).tiny
+    sub = np.concatenate([
+        rng.uniform(-1.0, 1.0, 200) * tiny,
+        [1e-45, -1e-45, np.nextafter(tiny, 0), -np.nextafter(tiny, 0), 1e-40, -1e-40],
+    ]).astype(np.float32)
+    assert np.all(np.abs(sub) < tiny) and np.count_nonzero(sub) == len(sub)
+    x = np.concatenate([sub, [tiny, -tiny, 0.0, -0.0, 1.0, -1.0]]).astype(np.float32)
+    k_t = TS.f32_sort_key(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(k_t, np.asarray(JS.f32_sort_key(jnp.asarray(x))))
+    assert np.all(k_t[: len(sub)] == 0) and np.all(k_t[len(sub) : len(sub) + 2] != 0)
+    np.testing.assert_array_equal(TS.f32_from_key(torch.from_numpy(k_t)).numpy()[: len(sub)], 0.0)
+    # A subnormal never beats zero in the min-scatter, as in JAX.
+    vals = np.array([1e-40, 0.0, -1e-40, 2.0], np.float32)
+    idx = np.array([0, 0, 1, 1], np.int32)
+    got = TS.scatter_min_f32(2, torch.from_numpy(idx), torch.from_numpy(vals)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(JS.scatter_min_f32(2, jnp.asarray(idx), jnp.asarray(vals))))
 
 
 def test_segment_sum_sorted_drops_tail():
