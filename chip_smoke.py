@@ -85,6 +85,35 @@ result line without a CUDA device):
        frame on the card and on the CPU: the same visible mask, values
        within 1e-4, some points visible.
 
+7. multi-device on torch.distributed, every rank a child process of this
+   script started with a timeout (a child that fails fails the phase):
+   7a. NCCL at world 1, flagship sizes: bootstrap, then 20 LIVO pairs on
+       one device and through `parallel.make_sharded_lio_step` map-sharded
+       and points-sharded, pair by pair in turns on the same inputs. Gates:
+       each sharded pair's summaries and the final arena equal the
+       one-device ones bit for bit (else within 1e-6 m, the merged surfel
+       lookup's own difference from the one-device lookup recorded beside),
+       `patch_sample` launches on the sharded pairs (counts reset just
+       before each sharded pair, read just after). Records pair ms per mode
+       and collectives per LIO step.
+   7b. two gloo ranks sharing cuda:0, the same sequence map-sharded. Gates:
+       the trajectory within 8e-3 m of 7a's, every occupied key on its
+       owner, each rank's load above 0.5 of the mean. Records arena bytes
+       per rank. With two or more GPUs, NCCL at world 2 too (else a line
+       says why not).
+   7c. the CLI under `python -m torch.distributed.run` (`run.main`, phase
+       4's log and avia_livo.yaml with the rig overrides): world 1 (NCCL,
+       parallel.map_sharded) with phase 4's gates and its tum.txt equal to
+       phase 4's bit for bit (else within 1e-6 m); then the first 30
+       scan-end groups at world 2 (gloo on cuda:0): ATE < 0.10 m, within
+       2e-2 m of world 1's rows. World 2 runs the loop back end and ends
+       with `LivoPipeline.reanchor_map` while only rank 0 holds a loop:
+       both ranks apply rank 0's shift (within 1e-5 m), keep every key on
+       its owner and agree on the epoch.
+   7d. (in 7b's world) a sharded `reanchor` of a 2^16-slot-per-rank arena
+       that moves most voxels to another owner: no point dropped, every
+       key on its owner; its ms.
+
 The last two lines of standard output are the kernels' JSON record and
 `{"ok": true, "device": {...}}`. The scene helpers (`Scene`) are plain
 numpy so the CPU tests can feed the same inputs to both packages.
@@ -607,9 +636,13 @@ def _summary_np(x):
 
 
 class LivoRun:
-    """bootstrap_map at construction, then one LIVO pair per `pair` call."""
+    """bootstrap_map at construction, then one LIVO pair per `pair` call.
+    With a `mesh` (`fastlivo_tpu_torch.parallel`), the LIO step and the
+    bootstrap run through the sharded builders on this rank's scan slice
+    (cfg.map_sharded picks the mode); the VIO step sees the whole cloud, as
+    in LivoPipeline."""
 
-    def __init__(self, cfg, scene: Scene, device):
+    def __init__(self, cfg, scene: Scene, device, mesh=None):
         import torch
 
         from fastlivo_tpu_torch import convert
@@ -617,16 +650,25 @@ class LivoRun:
         from fastlivo_tpu_torch.maps import voxel_map as vm
         from fastlivo_tpu_torch.models import pipeline as pl
 
-        self.cfg, self.scene, self.device, self.pl = cfg, scene, device, pl
+        self.cfg, self.scene, self.device, self.pl, self.mesh = cfg, scene, device, pl, mesh
         self.i3 = torch.eye(3, dtype=torch.float32, device=device)
         self.z3 = torch.zeros(3, dtype=torch.float32, device=device)
         self.rot_ci = torch.as_tensor(ROT_CI).to(device)
         self.state = convert.nav_state_from_numpy(scene.initial_state(), device)
         self.vmap = vmap_mod.make_visual_map(cfg.vm_cfg, device=device)
-        self.lmap = pl.bootstrap_map(
-            vm.make_map(cfg.map_cfg, device=device),
-            to_scan_input(scene.bootstrap_scan(), device), self.state, self.i3, self.z3, cfg,
-        )
+        boot_scan = to_scan_input(scene.bootstrap_scan(), device)
+        if mesh is None:
+            self.lmap = pl.bootstrap_map(
+                vm.make_map(cfg.map_cfg, device=device), boot_scan, self.state, self.i3, self.z3, cfg,
+            )
+        else:
+            from fastlivo_tpu_torch import parallel
+
+            self._step = parallel.make_sharded_lio_step(mesh, cfg)
+            self.lmap = parallel.make_sharded_bootstrap(mesh, cfg)(
+                parallel.make_sharded_map(cfg.map_cfg, mesh, device=device),
+                parallel.shard_scan(boot_scan, mesh), self.state, self.i3, self.z3,
+            )
         self.next_k = 1
 
     def make_inputs(self, n):
@@ -651,9 +693,18 @@ class LivoRun:
         return out
 
     def lio(self, inp):
-        self.state, self.lmap, _, cloud, lsum = self.pl.lio_scan_step(
-            self.state, self.lmap, inp["scan"], self.i3, self.z3, self.cfg
+        if self.mesh is None:
+            self.state, self.lmap, _, cloud, lsum = self.pl.lio_scan_step(
+                self.state, self.lmap, inp["scan"], self.i3, self.z3, self.cfg
+            )
+            return cloud, lsum
+        from fastlivo_tpu_torch import parallel
+
+        self.state, self.lmap, _, cloud, lsum = self._step(
+            self.state, self.lmap, parallel.shard_scan(inp["scan"], self.mesh), self.i3, self.z3
         )
+        if not self.cfg.map_sharded:  # points mode returns this rank's slice
+            cloud = tuple(self.mesh.axis.all_gather(c) for c in cloud)
         return cloud, lsum
 
     def vio(self, inp, cloud):
@@ -2033,18 +2084,496 @@ def phase_bag_colorize(pipe, seq, device):
                 frame_stamp=frame.stamp)
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: multi-device LIVO on torch.distributed. Every rank is a child
+# process of this script (`--rank-job`, or `--cli-job` under torchrun),
+# started with a timeout; a child that fails or outlives it fails the phase.
+# ---------------------------------------------------------------------------
+
+P7_PAIRS = 20  # LIVO pairs per run, after the bootstrap
+P7_RAW = 81920  # raw points per scan (the flagship's)
+P7_TRAJ_TOL_M = 8e-3  # world 2 against world 1 (tests/test_sharded.py:366)
+P7_EQ_TOL_M = 1e-6  # world 1 against one device, where not bit for bit
+P7_CLI_W2_SCANS = 30
+P7_CLI_W2_TOL_M = 2e-2  # tests/test_pipeline_sharded.py:88
+P7_RE_CAP = 1 << 16  # 7d: slots per rank
+P7_RE_POINTS = 16000  # ~12% of the two ranks' slots: the bounded probe drops none
+P7_RANK_TIMEOUT_S = 300
+# 7c: rank 0's loop correction, a shift by whole 0.5 m voxels (the map
+# resolution of the config), so every point keeps its voxel's fill and the
+# re-anchored arena must hold exactly the shifted points.
+P7_REANCHOR_SHIFT = (1.0, -0.5, 0.5)
+
+
+def reanchor_with_rank0_loop(pipe, shift=P7_REANCHOR_SHIFT):
+    """`pipe.reanchor_map()` in a process group when only rank 0's loop back
+    end holds a loop (a detection the other ranks' background workers have
+    not delivered yet), rank 0's corrected keyframes being its drifted ones
+    moved by `shift`. Every rank must follow rank 0. This rank's verdict,
+    map epoch, occupied keys and map cloud before and after (numpy)."""
+    from fastlivo_tpu_torch.backend.loop_manager import LoopEvent
+
+    lb = pipe.loop_backend
+    if pipe.rank == 0:
+        g = lb.graph
+        lb.loops.append(LoopEvent(0, len(g.stamps) - 1, 1.0, np.eye(3), np.zeros(3)))
+        # inv(R^T), not R: the keyframe rotations come from f32 states, so
+        # R R^T is the identity only to ~1e-7; this makes the correction's
+        # rotation the identity to f64 rounding.
+        lb.corrected_trajectory = lambda: (
+            np.linalg.inv(np.asarray(g.rots).transpose(0, 2, 1)), np.asarray(g.trans) + np.asarray(shift)
+        )
+    else:
+        lb.loops.clear()
+    before = pipe.map_cloud()
+    went = pipe.reanchor_map()
+    return dict(went=went, epoch=int(pipe.map.epoch), before=before, after=pipe.map_cloud(),
+                keys=pipe.map.keys[pipe.map.occupied].cpu().numpy())
+
+
+def reanchor_gap(res, shift=P7_REANCHOR_SHIFT):
+    """Largest gap between the stored points after the re-anchoring and the
+    shifted points before it (rows sorted), or None when the counts differ."""
+    want = (res["before"] + np.asarray(shift, np.float32)).astype(np.float32)
+    got = res["after"]
+    if len(got) != len(want):
+        return None
+    return float(np.abs(got[np.lexsort(got.T)] - want[np.lexsort(want.T)]).max()) if len(got) else 0.0
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def wait_children(procs, timeout, what):
+    """Wait for every (Popen, log path); kill them all on a timeout or a
+    failure, and raise with the failed child's log tail."""
+    deadline = time.monotonic() + timeout
+    failed = None
+    for p, log in procs:
+        try:
+            rc = p.wait(max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            rc = None
+        if rc != 0 and failed is None:
+            failed = (rc, log)
+            break
+    for p, _ in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait(30)
+    if failed is not None:
+        rc, log = failed
+        with open(log) as f:
+            tail = f.read()[-4000:]
+        raise AssertionError(f"{what}: a child {'timed out' if rc is None else f'exited {rc}'}:\n{tail}")
+
+
+def launch_ranks(job, world, backend, devices, out_dir, timeout=P7_RANK_TIMEOUT_S):
+    """`world` children running `job` (this script with --rank-job), a
+    torch.distributed world on 127.0.0.1; their JSON results in rank order."""
+    env0 = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), WORLD_SIZE=str(world))
+    procs, outs = [], []
+    for r in range(world):
+        out = os.path.join(out_dir, f"{job}_{backend}_w{world}_r{r}.json")
+        log = out[:-5] + ".log"
+        env = dict(env0, RANK=str(r), LOCAL_RANK=str(r))
+        cmd = [sys.executable, os.path.abspath(__file__), "--rank-job", job, "--job-out", out,
+               "--backend", backend, "--job-device", devices[r]]
+        with open(log, "w") as f:
+            procs.append((subprocess.Popen(cmd, env=env, stdout=f, stderr=subprocess.STDOUT), log))
+        outs.append(out)
+    wait_children(procs, timeout, f"{job} ({backend}, world {world})")
+    res = []
+    for out in outs:
+        with open(out) as f:
+            res.append(json.load(f))
+    return res
+
+
+def torchrun_cli(world, out_json, run_args, out_dir, timeout=P7_RANK_TIMEOUT_S):
+    """`python -m torch.distributed.run --nproc-per-node W` on this script's
+    --cli-job, which calls `fastlivo_tpu_torch.run.main` (the body of
+    `-m fastlivo_tpu_torch.run`) with `run_args` (handed over in a file, out
+    of reach of torchrun's and this script's own parsers); every rank's
+    JSON."""
+    log = out_json + ".log"
+    with open(out_json + ".args", "w") as f:
+        json.dump(run_args, f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(world),
+           "--master-addr", "127.0.0.1", "--master-port", str(free_port()),
+           os.path.abspath(__file__), "--cli-job", out_json]
+    with open(log, "w") as f:
+        p = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+    wait_children([(p, log)], timeout, f"torchrun CLI world {world}")
+    res = []
+    for r in range(world):
+        with open(f"{out_json}.r{r}") as f:
+            res.append(json.load(f))
+    return res
+
+
+def _init_rank(backend):
+    import torch.distributed as dist
+
+    dist.init_process_group(backend, init_method="env://", rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]))
+    return dist
+
+
+def arena_bytes(m):
+    return int(sum(t.numel() * t.element_size() for t in m))
+
+
+def job_p7_world1(device, backend):
+    """7a: the flagship LIVO sequence on one device and through the sharded
+    builders at world 1 (NCCL), both modes, pair by pair in turns on the
+    same inputs. Gates: every sharded pair's summaries and the final arena
+    equal the single-device ones bit for bit (else within P7_EQ_TOL_M, with
+    the surfel lookup's own difference shown); patch_sample launches on the
+    sharded pairs."""
+    import dataclasses
+
+    import torch
+
+    from fastlivo_tpu_torch import parallel
+    from fastlivo_tpu_torch.maps import voxel_map as vm
+
+    _init_rank(backend)
+    mesh = parallel.make_mesh(1)
+    cfg = flagship_config()
+    runs = {
+        "single": LivoRun(cfg, Scene(P7_RAW, 32, seed=0), device),
+        "map_sharded": LivoRun(dataclasses.replace(cfg, map_sharded=True), Scene(P7_RAW, 32, seed=0), device, mesh),
+        "points": LivoRun(cfg, Scene(P7_RAW, 32, seed=0), device, mesh),
+    }
+    inputs = {k: r.make_inputs(P7_PAIRS) for k, r in runs.items()}
+    # The op the map-sharded mode swaps in: the merged surfel lookup against
+    # the one-device lookup, on the bootstrap arena and the first scan.
+    q = inputs["single"][0]["scan"].pts[:cfg.ds_capacity] + torch.as_tensor(
+        pose_at(HALF_DT), dtype=torch.float32, device=device)
+    lk1 = vm.surfel_lookup(runs["single"].lmap, q, cfg.map_cfg)
+    lk2 = vm.sharded_surfel_lookup(runs["single"].lmap, q, cfg.map_cfg, mesh.map_axis)
+    lookup_diff = {f: float((a.float().nan_to_num(posinf=0.0) - b.float().nan_to_num(posinf=0.0)).abs().max())
+                   for f, a, b in zip(lk1._fields, lk1, lk2)}
+    lookup_bitwise = all(same_bits(a.float(), b.float()) for a, b in zip(lk1, lk2))
+    mesh.axis.counts.clear()
+    recs = {k: [] for k in runs}
+    launches = {"patch_sample": 0, "extract_windows": 0}
+    collectives = {}
+    for i in range(P7_PAIRS):
+        for k, run in runs.items():
+            if k != "single":
+                torch.cuda.synchronize()
+                reset_launches()
+                before = dict(mesh.axis.counts)
+            recs[k].append(run.pair(inputs[k][i], timed=True))
+            if k != "single":
+                torch.cuda.synchronize()
+                for name, n in read_launches().items():
+                    launches[name] += n
+                for op, n in mesh.axis.counts.items():
+                    collectives.setdefault(k, {}).setdefault(op, 0)
+                    collectives[k][op] += n - before.get(op, 0)
+    out = dict(lookup_diff=lookup_diff, lookup_bitwise=lookup_bitwise, launches=launches,
+               frames=2 * P7_PAIRS)
+    ref = finish(recs["single"])
+    check_records(ref)
+    out["single"] = dict(pair_ms=float(np.median([r["lio_ms"] + r["vio_ms"] for r in ref])),
+                         lio_ms=float(np.median([r["lio_ms"] for r in ref])))
+    for k in ("map_sharded", "points"):
+        got = finish(recs[k])
+        check_records(got)
+        summ = lambda rs: np.stack([np.concatenate([r["lio"], r["vio"]]) for r in rs])  # noqa: E731
+        a, b = summ(got), summ(ref)
+        pos_err = float(max(np.abs(a[:, 0:3] - b[:, 0:3]).max(), np.abs(a[:, 11:14] - b[:, 11:14]).max()))
+        m1, m2 = runs["single"].lmap, runs[k].lmap
+        bitwise = bool(np.array_equal(a, b) and torch.equal(m1.meta, m2.meta) and torch.equal(m1.counts, m2.counts))
+        out[k] = dict(
+            bitwise=bitwise, max_pos_diff_m=pos_err,
+            pair_ms=float(np.median([r["lio_ms"] + r["vio_ms"] for r in got])),
+            lio_ms=float(np.median([r["lio_ms"] for r in got])),
+            collectives_per_step={op: n / P7_PAIRS for op, n in collectives[k].items()},
+            traj=[r["lio"][0:3].tolist() + r["vio"][0:3].tolist() for r in got],
+            arena_bytes=arena_bytes(m2),
+        )
+        if not bitwise and not pos_err <= P7_EQ_TOL_M:
+            raise AssertionError(f"7a {k}: world 1 differs from one device by {pos_err} m "
+                                 f"(surfel lookup diff {lookup_diff})")
+    if launches["patch_sample"] <= 0:
+        raise AssertionError("7a: patch_sample was never launched on the sharded pairs")
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return out
+
+
+def job_p7_world2(device, backend):
+    """7b and 7d on `world` ranks (gloo sharing one GPU, or NCCL one rank
+    per GPU): the flagship sequence map-sharded; then a sharded reanchor of
+    a 2^16-slot-per-rank arena."""
+    import dataclasses
+
+    import torch
+
+    from fastlivo_tpu_torch import parallel
+    from fastlivo_tpu_torch.maps import voxel_map as vm
+
+    dist = _init_rank(backend)
+    mesh = parallel.make_mesh()
+    ax = mesh.map_axis
+    run = LivoRun(dataclasses.replace(flagship_config(), map_sharded=True), Scene(P7_RAW, 32, seed=0), device, mesh)
+    inputs = run.make_inputs(P7_PAIRS)
+    torch.cuda.synchronize()
+    reset_launches()
+    recs = finish([run.pair(inp, timed=True) for inp in inputs])
+    launches = read_launches()
+    check_records(recs)
+    m = run.lmap
+    keys = m.keys[m.occupied]
+    out = dict(
+        rank=ax.index, world=ax.size, backend=backend, device=str(device),
+        traj=[r["lio"][0:3].tolist() + r["vio"][0:3].tolist() for r in recs],
+        pair_ms=float(np.median([r["lio_ms"] + r["vio_ms"] for r in recs])),
+        lio_ms=float(np.median([r["lio_ms"] for r in recs])),
+        occupied=int(keys.shape[0]), owned=bool((vm.owner_of(keys, ax.size) == ax.index).all()),
+        arena_bytes=arena_bytes(m), launches=launches,
+    )
+    del run, m
+
+    # 7d: one point per voxel, a correction that moves most voxels to
+    # another owner; nothing may be dropped.
+    cfg_re = vm.VoxelMapConfig(resolution=0.4, capacity=P7_RE_CAP, max_points=8)
+    rng = np.random.default_rng(7)
+    vox = np.unique(np.floor(rng.uniform(-20, 20, (P7_RE_POINTS, 3)) / cfg_re.resolution).astype(np.int32), axis=0)
+    pts = torch.as_tensor(((vox + 0.5) * cfg_re.resolution).astype(np.float32), device=device)
+    th = 0.05
+    rot = torch.tensor([[math.cos(th), -math.sin(th), 0.0], [math.sin(th), math.cos(th), 0.0], [0.0, 0.0, 1.0]],
+                       device=device)
+    trans = torch.tensor([10.3, -7.7, 3.9], device=device)
+    ok = torch.ones(len(vox), dtype=torch.bool, device=device)
+    m = vm.sharded_insert(vm.make_map(cfg_re, device=device), pts, ok, cfg_re, ax)
+    n_before = int(ax.psum(vm.num_points(m)))
+    step_cfg = dataclasses.replace(flagship_config(), map_cfg=cfg_re, map_sharded=True)
+    re = parallel.make_sharded_reanchor(mesh, step_cfg)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = re(m, torch.zeros((1024,), dtype=torch.int32, device=device), rot[None], trans[None])
+    torch.cuda.synchronize()
+    re_ms = (time.perf_counter() - t0) * 1e3
+    n_after = int(ax.psum(vm.num_points(m)))
+    valid = (torch.arange(cfg_re.max_points, device=device)[None, :] < m.counts[:, None]) & m.occupied[:, None]
+    stored = ax.all_gather_ragged(m.points[valid]).cpu().numpy()
+    want = (pts @ rot.T + trans).cpu().numpy()
+    moved = int((vm.owner_of(torch.as_tensor(vox, device=device), ax.size)
+                 != vm.owner_of(vm.voxel_coord(pts @ rot.T + trans, cfg_re.resolution), ax.size)).sum())
+    gap = (float(np.abs(stored[np.lexsort(stored.T)] - want[np.lexsort(want.T)]).max())
+           if len(stored) == len(want) else None)
+    out["reanchor"] = dict(
+        points=len(vox), before=n_before, after=n_after, moved_owner=moved, ms=re_ms,
+        chunks=-(-(cfg_re.capacity * cfg_re.max_points) // 65536),
+        owned=bool((vm.owner_of(m.keys[m.occupied], ax.size) == ax.index).all()), max_point_gap_m=gap,
+    )
+    if n_after != n_before or n_before != len(vox) or gap is None or gap > 1e-5:
+        raise AssertionError(f"7d: reanchor dropped or moved points wrongly: {out['reanchor']}")
+    dist.destroy_process_group()
+    return out
+
+
+RANK_JOBS = {"p7_world1": job_p7_world1, "p7_world2": job_p7_world2}
+
+
+def run_rank_job(args):
+    """A child of phase 7: one rank of `args.rank_job`; its JSON result."""
+    import torch
+
+    device = torch.device(args.job_device)
+    torch.cuda.set_device(device)
+    from fastlivo_tpu_torch.ops import cuda_build
+
+    cuda_build.build_all()  # built by the parent; loads the cached libraries
+    out = RANK_JOBS[args.rank_job](device, args.backend)
+    with open(args.job_out, "w") as f:
+        json.dump(out, f, default=str)
+    return 0
+
+
+def run_cli_job(out_json):
+    """A torchrun rank of the CLI (`fastlivo_tpu_torch.run.main` on the
+    arguments in `out_json`.args), its gates and launch counts written per
+    rank."""
+    import torch
+
+    from fastlivo_tpu_torch import run
+
+    from fastlivo_tpu_torch.parallel.distributed import initialize_distributed
+
+    with open(out_json + ".args") as f:
+        run_args = json.load(f)
+    # This job makes the process group, so run.main leaves it up for the
+    # re-anchoring below.
+    opts = dict(zip(run_args, run_args[1:]))
+    initialize_distributed(backend=opts.get("--dist-backend"), device=opts.get("--device"))
+    reset_launches()
+    pipe = run.main(run_args)
+    torch.cuda.synchronize()
+    out = dict(rank=pipe.rank, shards=pipe.n_map_shards, launches=read_launches(), health=pipe.health,
+               lio_updates=len(pipe.n_effective), vio_updates=len(pipe.n_selected),
+               n_effective_min=min(pipe.n_effective) if pipe.n_effective else None,
+               n_selected=pipe.n_selected, vio_before_lio=pipe.vio_before_lio,
+               min_effective=pipe.step_cfg.lio_cfg.min_effective,
+               arena_bytes=arena_bytes(pipe.map), device=str(pipe.device))
+    if pipe.loop_backend is not None and pipe.mesh is not None:
+        from fastlivo_tpu_torch.maps import voxel_map as vm
+
+        t0 = time.perf_counter()
+        re = reanchor_with_rank0_loop(pipe)
+        out["reanchor"] = dict(
+            went=re["went"], epoch=re["epoch"], points=len(re["before"]), max_gap_m=reanchor_gap(re),
+            owned=bool((vm.owner_of(torch.as_tensor(re["keys"]), pipe.n_map_shards) == pipe.rank).all()),
+            seconds=time.perf_counter() - t0,
+        )
+    with open(f"{out_json}.r{pipe.rank}", "w") as f:
+        json.dump(out, f, default=str)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def p7_cli_gates(res, tag):
+    """Phase 4's per-run gates on a CLI rank's record."""
+    if res["health"]["rejected"]:
+        raise AssertionError(f"{tag}: {res['health']['rejected']} LIO updates rejected")
+    if not res["lio_updates"] or res["n_effective_min"] < res["min_effective"]:
+        raise AssertionError(f"{tag}: n_effective {res['n_effective_min']} below min_effective")
+    sel = res["n_selected"]
+    first = next((i for i, n in enumerate(sel) if n > 0), len(sel))
+    if first == len(sel) or min(sel[first:]) <= 0 or first > res["vio_before_lio"] + 1:
+        raise AssertionError(f"{tag}: n_selected {sel}")
+    if res["launches"]["patch_sample"] <= 0:
+        raise AssertionError(f"{tag}: patch_sample was never launched")
+
+
+def phase_multi(device, cli_dir, work_dir):
+    """Phase 7 (see the module docstring)."""
+    import torch
+
+    from fastlivo_tpu_torch.io import export
+
+    out = {}
+    t0 = time.perf_counter()
+    out["7a"] = launch_ranks("p7_world1", 1, "nccl", ["cuda:0"], work_dir)[0]
+    out["7a"]["seconds"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    w2 = launch_ranks("p7_world2", 2, "gloo", ["cuda:0", "cuda:0"], work_dir)
+    ref = np.asarray(out["7a"]["map_sharded"]["traj"])
+    occ = [r["occupied"] for r in w2]
+    b = dict(
+        ranks=[{k: v for k, v in r.items() if k != "traj"} for r in w2],
+        max_traj_diff_vs_world1_m=max(float(np.abs(np.asarray(r["traj"]) - ref).max()) for r in w2),
+        load_min_over_mean=min(occ) / float(np.mean(occ)),
+    )
+    if not b["max_traj_diff_vs_world1_m"] <= P7_TRAJ_TOL_M:
+        raise AssertionError(f"7b: world 2 trajectory {b['max_traj_diff_vs_world1_m']} m off world 1")
+    if not all(r["owned"] for r in w2) or not b["load_min_over_mean"] > 0.5:
+        raise AssertionError(f"7b: ownership {[r['owned'] for r in w2]}, load {occ}")
+    if any(r["launches"]["patch_sample"] <= 0 for r in w2):
+        raise AssertionError("7b: patch_sample was never launched")
+    if torch.cuda.device_count() >= 2:
+        nccl = launch_ranks("p7_world2", 2, "nccl", ["cuda:0", "cuda:1"], work_dir)
+        b["nccl_world2"] = dict(
+            max_traj_diff_vs_world1_m=max(float(np.abs(np.asarray(r["traj"]) - ref).max()) for r in nccl),
+            pair_ms=[r["pair_ms"] for r in nccl], occupied=[r["occupied"] for r in nccl])
+        if not b["nccl_world2"]["max_traj_diff_vs_world1_m"] <= P7_TRAJ_TOL_M:
+            raise AssertionError(f"7b: NCCL world 2 off world 1: {b['nccl_world2']}")
+    else:
+        b["nccl_world2"] = "not run: 1 GPU, and NCCL takes one rank per GPU"
+        print("7b: NCCL at world 2 not run: this machine has 1 GPU and NCCL takes one rank per GPU",
+              flush=True)
+    b["seconds"] = time.perf_counter() - t0
+    out["7b"] = b
+    out["7d"] = w2[0]["reanchor"]
+
+    t0 = time.perf_counter()
+    log = os.path.join(cli_dir, "cli.flvo")
+    rig = [f"--set={k}={v!r}" for k, v in cli_rig_overrides().items()]
+    base = ["--config", CLI_CONFIG, "--log-path", log, *rig, "--set=parallel.map_sharded=True"]
+    d1 = os.path.join(work_dir, "cli_w1")
+    r1 = torchrun_cli(1, os.path.join(work_dir, "cli_w1.json"),
+                      [*base, "--out", d1, "--set=parallel.n_devices=1"], work_dir)[0]
+    p7_cli_gates(r1, "7c world 1")
+    ate1, n1 = tum_ate(os.path.join(d1, "tum.txt"))
+    if ate1 >= CLI_ATE_M or not len(export.read_pcd(os.path.join(d1, "map.pcd"))):
+        raise AssertionError(f"7c world 1: ATE {ate1} m, or an empty map.pcd")
+    with open(os.path.join(cli_dir, "main", "tum.txt"), "rb") as f:
+        rows4 = f.read().splitlines()
+    with open(os.path.join(d1, "tum.txt"), "rb") as f:
+        rows1 = f.read().splitlines()
+    _, p4, _ = export.read_tum(os.path.join(cli_dir, "main", "tum.txt"))
+    _, p1, _ = export.read_tum(os.path.join(d1, "tum.txt"))
+    same = rows1 == rows4
+    gap = float(np.abs(p1 - p4).max()) if len(p1) == len(p4) else None
+    if not same and not (gap is not None and gap <= P7_EQ_TOL_M):
+        raise AssertionError(f"7c world 1: tum.txt differs from phase 4's (max gap {gap} m)")
+    d2 = os.path.join(work_dir, "cli_w2")
+    r2 = torchrun_cli(2, os.path.join(work_dir, "cli_w2.json"),
+                      [*base, "--out", d2, "--set=parallel.n_devices=2", "--dist-backend", "gloo",
+                       "--device", "cuda:0", "--max-scans", str(P7_CLI_W2_SCANS),
+                       "--set=loop.loop_en=True"], work_dir)
+    ate2, n2 = tum_ate(os.path.join(d2, "tum.txt"))
+    t2, p2, _ = export.read_tum(os.path.join(d2, "tum.txt"))
+    gap2 = float(np.abs(p2 - p1[: len(p2)]).max())
+    if ate2 >= CLI_ATE_M or not gap2 <= P7_CLI_W2_TOL_M or any(r["health"]["rejected"] for r in r2):
+        raise AssertionError(f"7c world 2: ATE {ate2} m, {gap2} m off world 1, health {[r['health'] for r in r2]}")
+    # reanchor_map when only rank 0's loop back end holds a loop: both ranks
+    # apply rank 0's shift (exact on the CPU; 1e-5 m here) and keep ownership.
+    re2 = [r["reanchor"] for r in r2]
+    if not (all(r["went"] and r["owned"] and r["max_gap_m"] is not None and r["max_gap_m"] <= 1e-5
+                for r in re2) and len({r["epoch"] for r in re2}) == 1):
+        raise AssertionError(f"7c world 2: reanchor_map did not follow rank 0: {re2}")
+    out["7c"] = dict(
+        world1=dict(ate_m=ate1, poses=n1, tum_bitwise_vs_phase4=same, max_gap_vs_phase4_m=gap,
+                    launches=r1["launches"], patch_sample_per_frame=r1["launches"]["patch_sample"] / max(r1["vio_updates"], 1),
+                    shards=r1["shards"], lio_updates=r1["lio_updates"], vio_updates=r1["vio_updates"],
+                    arena_bytes=r1["arena_bytes"]),
+        world2=dict(ate_m=ate2, poses=n2, max_gap_vs_world1_m=gap2, scans=P7_CLI_W2_SCANS,
+                    shards=[r["shards"] for r in r2], arena_bytes=[r["arena_bytes"] for r in r2],
+                    launches=[r["launches"] for r in r2], reanchor=re2),
+        seconds=time.perf_counter() - t0,
+    )
+    return out
+
+
 def main(argv=None):
     import argparse
+    import contextlib
 
     import torch
 
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU and check it.")
     ap.add_argument("--out", help="also write every phase's full record to this JSON file")
+    # Phase 7's children (started by this script, not by hand).
+    ap.add_argument("--rank-job", choices=sorted(RANK_JOBS), help=argparse.SUPPRESS)
+    ap.add_argument("--job-out", help=argparse.SUPPRESS)
+    ap.add_argument("--backend", help=argparse.SUPPRESS)
+    ap.add_argument("--job-device", help=argparse.SUPPRESS)
+    ap.add_argument("--cli-job", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if args.rank_job:
+        return run_rank_job(args)
+    if args.cli_job:
+        return run_cli_job(args.cli_job)
     from fastlivo_tpu_torch import native
     from fastlivo_tpu_torch.ops import cuda_build
 
@@ -2071,8 +2600,9 @@ def main(argv=None):
     det = phase_determinism(device)
     print(json.dumps({"determinism": det}), flush=True)
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as log_dir:
-        cli = phase_cli(device, log_dir)
+    stack = contextlib.ExitStack()  # phase 4's log and tum.txt stay for phase 7c
+    cli_dir = stack.enter_context(tempfile.TemporaryDirectory(prefix="chip_smoke_cli_"))
+    cli = phase_cli(device, cli_dir)
     print(json.dumps({"cli": cli, "gpu": ident}), flush=True)
     cli_launches = cli["main"]["launches"]
     if cli_launches["patch_sample"] <= 0:
@@ -2101,6 +2631,13 @@ def main(argv=None):
     print(json.dumps({"phase6_bag": bag, "gpu": ident}, default=str), flush=True)
     bag_launches = bag["6a"]["launches"]
 
+    with stack, tempfile.TemporaryDirectory(prefix="chip_smoke_p7_") as p7_dir:
+        t0 = time.perf_counter()
+        multi = phase_multi(device, cli_dir, p7_dir)
+        multi["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"phase7_multi": multi, "gpu": ident}, default=str), flush=True)
+    p7_launches = multi["7a"]["launches"]
+
     kernels = []
     for r in k1:
         kernels.append(dict(
@@ -2111,6 +2648,7 @@ def main(argv=None):
             launches_cli=cli_launches["extract_windows"],
             launches_5b=gnss_launches["extract_windows"],
             launches_6a=bag_launches["extract_windows"],
+            launches_7=p7_launches["extract_windows"],
             max_abs_err=r["max_abs_err"],
             ms=r["kernel_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
@@ -2134,6 +2672,8 @@ def main(argv=None):
             launches_5b_per_frame=gnss["patch_sample_per_frame"],
             launches_6a=bag_launches["patch_sample"],
             launches_6a_per_frame=bag["6a"]["patch_sample_per_frame"],
+            launches_7=p7_launches["patch_sample"],
+            launches_7_per_frame=p7_launches["patch_sample"] / multi["7a"]["frames"],
             max_abs_err=r["max_abs_err"],
             ms=r["kernel_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
@@ -2148,7 +2688,7 @@ def main(argv=None):
         with open(args.out, "w") as f:
             json.dump({"gpu": ident, "kernels": kernels, "livo": livo, "determinism": det, "cli": cli,
                        "phase5a_loop": loop, "phase5b_gnss": gnss, "phase5c_matcher": matcher,
-                       "phase6_bag": bag}, f, indent=1, default=str)
+                       "phase6_bag": bag, "phase7_multi": multi}, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -177,12 +177,16 @@ class LoopBackend:
 
     # ------------------------------------------------------------------
 
+    def drain(self):
+        """Wait for and handle every pending background detection."""
+        for fut, kf_idx, key_img in self._pending:
+            self._handle_result(fut.result(), kf_idx, key_img)
+        self._pending = []
+
     def finish(self):
         """Drain pending background detections."""
         if self._executor is not None:
-            for fut, kf_idx, key_img in self._pending:
-                self._handle_result(fut.result(), kf_idx, key_img)
-            self._pending = []
+            self.drain()
             self._executor.shutdown(wait=True)
 
     def corrected_trajectory(self) -> Tuple[np.ndarray, np.ndarray]:

@@ -8,11 +8,18 @@ the symmetric-6 `surf_s2` of the voxel map.
 The matcher's weights (the committed npz artifacts, or the JAX package's
 `init_superpoint` / `init_lightglue` output as NumPy) become the state of
 the port's SuperPoint and LightGlue modules.
+
+Sharded arenas: the JAX package holds a map-sharded arena as one global
+array per field (capacity x W rows, shard-major); each port rank holds one
+shard. `split_sharded_map` cuts the former into the latter,
+`join_sharded_maps` puts them back, and `checkpoint_from_jax` rewrites a
+JAX pipeline checkpoint (sharded or not) as a port checkpoint.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Type
+import json
+from typing import Dict, List, NamedTuple, Type
 
 import numpy as np
 import torch
@@ -57,6 +64,72 @@ def voxel_map_to_numpy(m: VoxelHashMap) -> Dict[str, np.ndarray]:
 
 def visual_map_to_numpy(m: VisualMap) -> Dict[str, np.ndarray]:
     return _to_numpy(m)
+
+
+def split_sharded_map(d: Dict[str, np.ndarray], n_shards: int) -> List[Dict[str, np.ndarray]]:
+    """A global sharded arena (numpy fields, capacity x n_shards rows) ->
+    the n_shards per-rank arenas, in rank order. The scalar epoch is
+    replicated."""
+    out = [dict() for _ in range(n_shards)]
+    for k, v in d.items():
+        v = np.asarray(v)
+        if v.ndim and v.shape[0] % n_shards:
+            raise ValueError(f"{k}: {v.shape[0]} rows do not split into {n_shards} shards")
+        for i in range(n_shards):
+            out[i][k] = v.copy() if v.ndim == 0 else v.reshape(n_shards, -1, *v.shape[1:])[i].copy()
+    return out
+
+
+def join_sharded_maps(shards: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    """The per-rank arenas (numpy fields, rank order) -> the global arena,
+    shard-major as the JAX package lays it out. Every shard must carry the
+    same epoch."""
+    out = {}
+    for k in shards[0]:
+        parts = [np.asarray(s[k]) for s in shards]
+        if parts[0].ndim == 0:
+            if any(p != parts[0] for p in parts):
+                raise ValueError(f"{k}: shards disagree ({[int(p) for p in parts]})")
+            out[k] = parts[0].copy()
+        else:
+            out[k] = np.concatenate(parts)
+    return out
+
+
+def checkpoint_from_jax(jax_path: str, out_path: str):
+    """Rewrite a JAX pipeline checkpoint (fastlivo_tpu.utils.checkpoint) as
+    a port checkpoint (fastlivo_tpu_torch.utils.checkpoint), arrays as they
+    are: the arena stays global, with the blob's shard count, so it loads
+    into a port pipeline at that count. Host state the JAX blob does not
+    hold starts empty (per-update counts, insert-epoch stamps, health)."""
+    from fastlivo_tpu_torch.utils import checkpoint as ckpt
+
+    with np.load(jax_path, allow_pickle=False) as data:
+        header = json.loads(bytes(data["header"]).decode())
+        blobs = {}
+        for group, cls in (("state", NavState), ("map", VoxelHashMap), ("vmap", VisualMap)):
+            for i, name in enumerate(cls._fields):
+                blobs[f"{group}/{name}"] = np.asarray(data[f"{group}/{i}"])
+        for key in ("world_cloud", "world_mask", "traj_t", "traj_pos", "traj_quat"):
+            blobs[key] = np.asarray(data[key])
+    blobs["traj_t"] = blobs["traj_t"].astype(np.float64)
+    blobs["n_effective"] = np.zeros((0,), np.int64)
+    blobs["n_selected"] = np.zeros((0,), np.int64)
+    blobs["init_mean_acc"] = np.asarray(header["mean_acc"])
+    blobs["init_mean_gyr"] = np.asarray(header["mean_gyr"])
+    port_header = {
+        "schema": ckpt.SCHEMA,
+        "schema_version": ckpt.SCHEMA_VERSION,
+        "first_scan": header["first_scan"],
+        "first_scan_t": None,  # the JAX blob does not keep it
+        "init_done": header["init_done"],
+        "health": {"rejected": 0, "low_constraint": 0, "resets": 0},
+        "vio_before_lio": 0,
+        "n_map_shards": int(header.get("n_map_shards", 1)),
+        "meta": header.get("meta", {}),
+    }
+    blobs["header"] = np.frombuffer(json.dumps(port_header).encode(), np.uint8)
+    np.savez_compressed(out_path, **blobs)
 
 
 def _f32(a) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Fixed-capacity voxel-hash LiDAR map (port of the single-device parts of
-fastlivo_tpu/maps/voxel_map.py, `reanchor` included).
+"""Fixed-capacity voxel-hash LiDAR map (port of
+fastlivo_tpu/maps/voxel_map.py: the arena, `reanchor`, and the sharded
+arena's ownership hash, local insert and collective lookups).
 
 Same arena layout, hashes and algorithms as the JAX package — bucketized
 two-choice hash table of packed 8-word slot rows, per-voxel point slabs,
@@ -13,7 +14,10 @@ PyTorch idiom where JAX semantics need care:
 - segment sums reduce over the shared sorted order
   (`ops.scatter.segment_sum_sorted`), the same on every run;
 - the claim phase's `lax.cond` / `lax.while_loop` are Python control flow
-  that reads one flag per trip from the device (the JAX trip count).
+  that reads one flag per trip from the device (the JAX trip count);
+- a sharded arena's collectives go through a `parallel.axis.Axis` (the
+  JAX `axis_name`); the claim rounds hold none, so their trip counts may
+  differ between ranks.
 """
 
 from __future__ import annotations
@@ -177,6 +181,18 @@ def _hash(vox: torch.Tensor, n_buckets: int) -> torch.Tensor:
 def _hash2(vox: torch.Tensor, n_buckets: int) -> torch.Tensor:
     """Second, independent bucket hash (two-choice table)."""
     return _hash_with(vox, _HP2, n_buckets)
+
+
+# Shard-ownership hash: its own primes, uncorrelated with the slot hashes
+# so that per-shard occupancy stays uniform.
+_HP_OWNER = (73856093, 19349669, 83492791)
+
+
+def owner_of(vox: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """Shard owner of each (..., 3) int32 voxel coord, in [0, n_shards):
+    every voxel (slab, LRU stamp, surfel moments) lives on exactly one
+    shard, so per-shard map memory is capacity_global / n_shards."""
+    return _hash_with(vox, _HP_OWNER, n_shards)
 
 
 class ProbeRows(NamedTuple):
@@ -704,6 +720,104 @@ def surfel_lookup(
     return _plane_from_win(m, win, planarity_max)
 
 
+# ---------------------------------------------------------------------------
+# Sharded arena (the map partitioned over a mesh axis by `owner_of`).
+#
+# Each rank's arena stores only the voxels it owns. Queries are replicated
+# (the downsampled scan is small); each rank resolves them against its own
+# shard, where voxels it does not own are simply absent, and the per-shard
+# results merge with collectives: surfel by a minimum on candidate distance
+# (two MIN all-reduces and one SUM of the winner's payload), kNN by a
+# gather of every shard's best k and a second best-k. Inserts are local:
+# each rank scatters only the points whose voxel it owns.
+# ---------------------------------------------------------------------------
+
+
+def owned_mask(pts: torch.Tensor, resolution: float, axis) -> torch.Tensor:
+    """True for points whose voxel this rank owns on `axis`."""
+    return owner_of(voxel_coord(pts, resolution), axis.size) == axis.index
+
+
+def sharded_insert(
+    m: VoxelHashMap,
+    pts: torch.Tensor,
+    mask: torch.Tensor,
+    cfg: VoxelMapConfig,
+    axis,
+    dedup: VoxelDedup | None = None,
+) -> VoxelHashMap:
+    """Shard-local insert: every rank sees the full gated scan and scatters
+    only its owned voxels. `insert` re-derives per-voxel validity from the
+    narrowed mask, so a replicated dedup table can be passed through."""
+    return insert(m, pts, mask & owned_mask(pts, cfg.resolution, axis), cfg, dedup=dedup)
+
+
+def sharded_surfel_lookup(
+    m: VoxelHashMap,
+    queries: torch.Tensor,
+    cfg: VoxelMapConfig,
+    axis,
+    min_points: float = 6.0,
+    planarity_max: float = 0.01,
+) -> SurfelResult:
+    """Surfel lookup over a sharded arena; `queries` replicated over `axis`,
+    the result replicated too. Each rank finds its best local candidate and
+    fits its plane (only the owner holds the moments); the winner per query
+    is the least mean distance, lowest rank on ties (two distinct voxels on
+    two shards can tie), and its 7-wide payload is summed over the axis."""
+    dtype = queries.dtype
+    win = _surfel_win(m, queries, cfg, min_points)
+    res = _plane_from_win(m, win, planarity_max)
+
+    d2m = torch.where(win.has, win.d2, torch.inf)
+    gmin = axis.pmin(d2m)
+    contender = torch.where((d2m == gmin) & win.has, axis.index, axis.size).to(torch.int32)
+    gidx = axis.pmin(contender)
+    win_dev = (contender == gidx) & (gidx < axis.size)
+
+    payload = torch.cat(
+        [
+            res.normal,
+            res.d[:, None],
+            res.valid.to(dtype)[:, None],
+            torch.where(torch.isfinite(res.min_eig), res.min_eig, 0.0)[:, None],
+            res.n_pts[:, None],
+        ],
+        dim=1,
+    )
+    merged = axis.psum(torch.where(win_dev[:, None], payload, 0.0))
+    any_win = axis.psum(win_dev.to(torch.int32)) > 0
+    return SurfelResult(
+        normal=merged[:, 0:3],
+        d=merged[:, 3],
+        valid=(merged[:, 4] > 0.5) & any_win,
+        min_eig=torch.where(any_win, merged[:, 5], torch.inf),
+        n_pts=merged[:, 6],
+    )
+
+
+def sharded_knn(
+    m: VoxelHashMap,
+    queries: torch.Tensor,
+    cfg: VoxelMapConfig,
+    axis,
+    k: int = 5,
+    max_dist2: float = 25.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """kNN over a sharded arena; `queries` replicated, result replicated.
+    Every shard's best k are gathered ((size, N, k) in rank order, as JAX's
+    all_gather) and the best k taken again by a stable sort, which keeps
+    `lax.top_k`'s lower-index-first order among equal distances."""
+    n = queries.shape[0]
+    pts_l, d2_l, _ = knn(m, queries, cfg, k=k, max_dist2=max_dist2)
+    d2_all = axis.all_gather(d2_l).reshape(axis.size, n, k).transpose(0, 1).reshape(n, -1)
+    pts_all = axis.all_gather(pts_l).reshape(axis.size, n, k, 3).transpose(0, 1).reshape(n, -1, 3)
+    best_d2, idx = torch.sort(d2_all, dim=1, stable=True)
+    best_d2 = best_d2[:, :k]
+    best_pts = torch.gather(pts_all, 1, idx[:, :k, None].expand(n, k, 3))
+    return best_pts, best_d2, best_d2 <= max_dist2
+
+
 def reanchor(
     m: VoxelHashMap,
     cfg: VoxelMapConfig,
@@ -711,6 +825,7 @@ def reanchor(
     rots: torch.Tensor,
     trans: torch.Tensor,
     chunk: int = 65536,
+    axis=None,
 ) -> VoxelHashMap:
     """Rigidly re-anchor the live arena after a loop correction: every
     stored point moves by the correction of the segment its slot's insert
@@ -724,6 +839,11 @@ def reanchor(
     Args:
       seg_of_epoch: (E,) int32 insert epoch -> correction segment.
       rots/trans: (K, 3, 3), (K, 3) per-segment corrections.
+      axis: the axis a sharded arena partitions over. A corrected point may
+        land in a voxel another shard owns, so each transformed chunk is
+        gathered over the axis and inserted shard-locally: no point is
+        dropped on an ownership change. Every shard inserts the same number
+        of chunks, so the epochs stay in lockstep.
     """
     c, s = cfg.capacity, cfg.max_points
     chunk = min(chunk, c * s)
@@ -745,7 +865,12 @@ def reanchor(
         ep_chunk = flat_ep[lo: lo + chunk]
         seg = seg_of_epoch[torch.clamp(ep_chunk, 0, seg_of_epoch.shape[0] - 1).long()].long()
         p_chunk = torch.einsum("nij,nj->ni", rots[seg], p_chunk) + trans[seg]
-        fresh = insert(fresh._replace(epoch=m.epoch + i), p_chunk, flat_ok[lo: lo + chunk], cfg)
+        ok_chunk = flat_ok[lo: lo + chunk]
+        fresh = fresh._replace(epoch=m.epoch + i)
+        if axis is None:
+            fresh = insert(fresh, p_chunk, ok_chunk, cfg)
+        else:
+            fresh = sharded_insert(fresh, axis.all_gather(p_chunk), axis.all_gather(ok_chunk), cfg, axis)
     return fresh._replace(epoch=m.epoch + n_chunks)
 
 

@@ -1,5 +1,5 @@
-"""LIO: the iterated error-state Kalman update (port of the single-device
-paths of fastlivo_tpu/models/lio.py) with its three measurement models:
+"""LIO: the iterated error-state Kalman update (port of
+fastlivo_tpu/models/lio.py) with its three measurement models:
 point-to-plane (kNN + plane fit, the default), VGICP (distribution to
 point) and surfel (running voxel moments).
 
@@ -7,6 +7,12 @@ The JAX `lax.while_loop` over iterations, with the neighbor re-search
 under a `lax.cond`, becomes a Python loop that reads the `done` and
 `search_en` flags from the device once per trip (one host read per
 iteration), so the trip count is exactly the JAX one.
+
+Multi-device: `axis_name` is the `parallel.axis.Axis` the scan points are
+sharded over (each innovation is summed over it before the GNSS extras are
+added), `map_axis` the one the arena is sharded over (lookups merge over
+it). Both make every value the loop's flags derive from replicated, so all
+ranks run the same number of iterations.
 """
 
 from __future__ import annotations
@@ -22,11 +28,6 @@ from fastlivo_tpu_torch.ops import linalg, plane, so3
 from fastlivo_tpu_torch.state import DIM_STATE, NavState, boxminus, boxplus
 
 _R2D = 57.29577951308232
-
-_NO_MULTI_DEVICE = (
-    "multi-device LIO (axis_name / map_axis) is not ported to "
-    "fastlivo_tpu_torch yet (ROADMAP.md section 1, item 14)"
-)
 
 
 @dataclass(frozen=True)
@@ -102,8 +103,17 @@ def _residual_gate(normal, d, plane_ok, p_w, pts_body, pts_mask, cfg: LioConfig)
     return pd2, valid
 
 
+def _psum_innovation(hth, hty, n_eff, res_sum, axis_name):
+    """The innovation is a sum over points: one sum over the point axis
+    gives every rank the global one (the 18x18 solve is then replicated)."""
+    if axis_name is None:
+        return hth, hty, n_eff, res_sum
+    return tuple(axis_name.psum(x) for x in (hth, hty, n_eff, res_sum))
+
+
 def _innovation(
     rot, pos, pts_body, pts_mask, neighbors, neighbor_valid, rot_il, t_il, cfg: LioConfig,
+    axis_name=None,
 ):
     """Point-to-plane innovation: the plane is refit from the cached
     neighbors every iteration. Returns (H^T R^-1 H (6x6), H^T R^-1 (-r),
@@ -115,7 +125,7 @@ def _innovation(
     hth, hty = _plane_sums(normal, pd2, p_imu, rot, valid, w)
     n_eff = torch.sum(valid.to(torch.int32)).to(torch.int32)
     res_sum = torch.sum(torch.where(valid, torch.abs(pd2), 0.0))
-    return hth, hty, n_eff, res_sum
+    return _psum_innovation(hth, hty, n_eff, res_sum, axis_name)
 
 
 def scan_source_covariances(
@@ -152,7 +162,7 @@ def scan_source_covariances(
 
 def _innovation_vgicp(
     rot, pos, pts_body, pts_mask, neighbors, neighbor_valid, rot_il, t_il, cfg: LioConfig,
-    src_cov: torch.Tensor | None = None,
+    axis_name=None, src_cov: torch.Tensor | None = None,
 ):
     """Distribution-to-point innovation: error_i = mean(neighbors_i) - p_w_i,
     weight (cov(neighbors_i) + R C_src_i R^T)^-1, Jacobian
@@ -202,17 +212,20 @@ def _innovation_vgicp(
 
     n_eff = torch.sum(valid.to(torch.int32)).to(torch.int32)
     res_sum = torch.sum(torch.where(valid, torch.linalg.vector_norm(err, dim=-1), 0.0))
-    return hth, hty, n_eff, res_sum
+    return _psum_innovation(hth, hty, n_eff, res_sum, axis_name)
 
 
 def surfel_match(
     rot, pos, pts_body, lidar_map, rot_il, t_il, map_cfg, cfg, map_axis=None
 ) -> vm.SurfelResult:
     """Associate each point with a map surfel at the current pose estimate
-    (the plane itself is pose-independent and is cached by lio_update)."""
-    if map_axis is not None:
-        raise NotImplementedError(_NO_MULTI_DEVICE)
+    (the plane itself is pose-independent and is cached by lio_update);
+    over a sharded arena (`map_axis`) the per-shard winners merge."""
     _, p_w = transform_to_world(pts_body, rot, pos, rot_il, t_il)
+    if map_axis is not None:
+        return vm.sharded_surfel_lookup(
+            lidar_map, p_w, map_cfg, map_axis, cfg.surfel_min_points, cfg.surfel_planarity_max
+        )
     return vm.surfel_lookup(
         lidar_map, p_w, map_cfg, cfg.surfel_min_points, cfg.surfel_planarity_max
     )
@@ -225,8 +238,6 @@ def _innovation_surfel(
     """Point-to-surfel innovation: the point-to-plane structure with the
     plane from a cached surfel match and, with surfel_conf_weight, the
     measurement variance inflated by the surfel's own uncertainty."""
-    if axis_name is not None:
-        raise NotImplementedError(_NO_MULTI_DEVICE)
     p_imu, p_w = transform_to_world(pts_body, rot, pos, rot_il, t_il)
     pd2, valid = _residual_gate(surf.normal, surf.d, surf.valid, p_w, pts_body, pts_mask, cfg)
     if cfg.surfel_conf_weight:
@@ -238,7 +249,7 @@ def _innovation_surfel(
     hth, hty = _plane_sums(surf.normal, pd2, p_imu, rot, valid, w)
     n_eff = torch.sum(valid.to(torch.int32)).to(torch.int32)
     res_sum = torch.sum(torch.where(valid, torch.abs(pd2), 0.0))
-    return hth, hty, n_eff, res_sum
+    return _psum_innovation(hth, hty, n_eff, res_sum, axis_name)
 
 
 def _embed18(hth6: torch.Tensor, hty6: torch.Tensor, dtype):
@@ -260,15 +271,18 @@ def lio_update(
     cfg: LioConfig,
     extra_hth: torch.Tensor | None = None,
     extra_hty: torch.Tensor | None = None,
-    axis_name: str | None = None,
-    map_axis: str | None = None,
+    axis_name=None,
+    map_axis=None,
 ) -> Tuple[NavState, LioInfo, Tuple[torch.Tensor, torch.Tensor]]:
     """One full iterated ESKF update. Returns (posterior, LioInfo,
     (nbr, nbr_valid)): the kNN neighbor cache (point_to_plane, vgicp),
     reused by the map-insert gate, or for the surfel model the matched
-    planes packed as nbr[:, 0] = normal, nbr[:, 1] = (d, min_eig, n_pts)."""
-    if axis_name is not None or map_axis is not None:
-        raise NotImplementedError(_NO_MULTI_DEVICE)
+    planes packed as nbr[:, 0] = normal, nbr[:, 1] = (d, min_eig, n_pts).
+
+    axis_name: the `Axis` pts_body is sharded over; the innovations are
+    summed over it, before extra_hth/extra_hty are added. map_axis: the
+    `Axis` lidar_map is sharded over; pts_body must then be replicated over
+    it, and the lookups merge over it. Both may be set (a 2-D mesh)."""
     dtype = pts_body.dtype
     dev = pts_body.device
     p_inv = linalg.psd_inverse(state_prop.cov)
@@ -279,16 +293,22 @@ def lio_update(
 
     def search(rot, pos):
         if surfel_mode:
-            surf = surfel_match(rot, pos, pts_body, lidar_map, rot_il, t_il, map_cfg, cfg)
+            surf = surfel_match(rot, pos, pts_body, lidar_map, rot_il, t_il, map_cfg, cfg, map_axis)
             eig = torch.where(torch.isfinite(surf.min_eig), surf.min_eig, 0.0)
             nbr = torch.stack(
                 [surf.normal, torch.stack([surf.d, eig, surf.n_pts], dim=-1)], dim=1
             )
             return nbr, surf.valid[:, None]
         _, p_w = transform_to_world(pts_body, rot, pos, rot_il, t_il)
-        nbr, _, nbr_valid = vm.knn(
-            lidar_map, p_w, map_cfg, k=cfg.num_match_points, max_dist2=cfg.max_search_dist2
-        )
+        if map_axis is not None:
+            nbr, _, nbr_valid = vm.sharded_knn(
+                lidar_map, p_w, map_cfg, map_axis, k=cfg.num_match_points,
+                max_dist2=cfg.max_search_dist2,
+            )
+        else:
+            nbr, _, nbr_valid = vm.knn(
+                lidar_map, p_w, map_cfg, k=cfg.num_match_points, max_dist2=cfg.max_search_dist2
+            )
         return nbr, nbr_valid & pts_mask[:, None]
 
     def innovation(rot, pos, nbr, nbr_valid):
@@ -297,12 +317,17 @@ def lio_update(
                 normal=nbr[:, 0, :], d=nbr[:, 1, 0], valid=nbr_valid[:, 0],
                 min_eig=nbr[:, 1, 1], n_pts=nbr[:, 1, 2],
             )
-            return _innovation_surfel(rot, pos, pts_body, pts_mask, surf, rot_il, t_il, cfg)
+            return _innovation_surfel(
+                rot, pos, pts_body, pts_mask, surf, rot_il, t_il, cfg, axis_name
+            )
         if cfg.measurement_model == "vgicp":
             return _innovation_vgicp(
-                rot, pos, pts_body, pts_mask, nbr, nbr_valid, rot_il, t_il, cfg, src_cov=src_cov
+                rot, pos, pts_body, pts_mask, nbr, nbr_valid, rot_il, t_il, cfg, axis_name,
+                src_cov=src_cov,
             )
-        return _innovation(rot, pos, pts_body, pts_mask, nbr, nbr_valid, rot_il, t_il, cfg)
+        return _innovation(
+            rot, pos, pts_body, pts_mask, nbr, nbr_valid, rot_il, t_il, cfg, axis_name
+        )
 
     nbr, nbr_valid = search(state_prop.rot, state_prop.pos)
     rot, pos, vel = state_prop.rot, state_prop.pos, state_prop.vel

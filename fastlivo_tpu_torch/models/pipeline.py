@@ -1,5 +1,5 @@
-"""The per-scan and per-frame programs of the single-device LIVO cycle and
-the host pipeline that drives them (port of fastlivo_tpu/models/pipeline.py:
+"""The per-scan and per-frame programs of the LIVO cycle and the host
+pipeline that drives them (port of fastlivo_tpu/models/pipeline.py:
 `StepConfig` with `from_config`, `lio_scan_step` with every measurement
 model, `lio_scan_multi`, `vio_scan_step`, `bootstrap_map`, `step_summary`
 and `LivoPipeline`).
@@ -13,9 +13,14 @@ The chain per scan is the JAX package's:
 observation block per scan, linearized at the propagated prior), the STD
 loop-closure back end with its pose graph and visual gate, loop-corrected
 map re-anchoring (`reanchor_map`), the annotated-frame dump and the
-deferred-fetch scan batching of `lio.scan_batch`. The multi-device
-branches are a later slice (ROADMAP.md section 1, item 14); the pipeline
-raises `NotImplementedError` for them.
+deferred-fetch scan batching of `lio.scan_batch`.
+
+Multi-device (`parallel`): one process per rank under torch.distributed,
+every rank running the same pipeline on the same log. `axis_name` is a
+`parallel.axis.Axis`: the scan points are sharded over it and the
+innovations summed (map replicated), or, with `StepConfig.map_sharded`,
+the arena is hash-partitioned over its innermost axis and the lookups
+merge over it (a joined 2-D axis shards the queries over its outer axis).
 """
 
 from __future__ import annotations
@@ -36,19 +41,8 @@ from fastlivo_tpu_torch.models import lio
 from fastlivo_tpu_torch.models import vio as vio_mod
 from fastlivo_tpu_torch.ops import so3, voxelize
 from fastlivo_tpu_torch.ops.camera import Pinhole
+from fastlivo_tpu_torch.parallel.axis import map_axis_of
 from fastlivo_tpu_torch.state import NavState
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to fastlivo_tpu_torch yet (ROADMAP.md section 1, item {item})"
-    )
-
-
-_NO_MULTI_DEVICE = (
-    "multi-device steps (axis_name, map_sharded) are not ported to "
-    "fastlivo_tpu_torch yet (ROADMAP.md section 1, item 14)"
-)
 
 
 @dataclass(frozen=True)
@@ -158,6 +152,20 @@ def _propagate(state, scan: ScanInput, cfg: StepConfig):
     )
 
 
+def axis_roles(axis_name, cfg: StepConfig):
+    """(map_axis, query_axis) of a step over `axis_name`: with
+    cfg.map_sharded the innermost axis shards the arena and the outer one
+    of a joined axis the queries; otherwise the queries shard over the
+    whole axis and the map is replicated."""
+    if axis_name is None:
+        return None, None
+    if cfg.map_sharded:
+        return map_axis_of(axis_name), (axis_name.parts[0] if axis_name.parts else None)
+    if axis_name.parts:
+        raise ValueError("multi-axis meshes require cfg.map_sharded=True")
+    return None, axis_name
+
+
 def lio_scan_step(
     state: NavState,
     lidar_map: vm.VoxelHashMap,
@@ -167,26 +175,43 @@ def lio_scan_step(
     cfg: StepConfig,
     extra_hth: Optional[torch.Tensor] = None,
     extra_hty: Optional[torch.Tensor] = None,
-    axis_name: Optional[str] = None,
+    axis_name=None,
 ) -> Tuple[NavState, vm.VoxelHashMap, lio.LioInfo, Tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
-    """One full scan-end measurement update (one device).
+    """One full scan-end measurement update.
 
     Returns (posterior state, updated map, LioInfo, (world_cloud,
     world_mask), packed summary — see `step_summary`). A rejected update
     (non-finite, or a correction above lio_cfg.max_jump_m) returns the
     propagated state and leaves the map untouched.
+
+    With `axis_name` (an `Axis`): scan.pts/t_offs/mask are this rank's
+    slice of the raw scan (`parallel.shard_scan`); state and extras are
+    replicated. Undistortion runs on the slice; the undistorted scan is
+    gathered and downsampled identically on every rank (a global voxel
+    dedup, as on one device), then each rank takes its query slice (points
+    mode) or keeps all of it (map-sharded). The returned world cloud is the
+    rank's slice in points mode and the whole cloud in map-sharded mode.
     """
-    if axis_name is not None or cfg.map_sharded:
-        raise NotImplementedError(_NO_MULTI_DEVICE)
+    map_axis, query_axis = axis_roles(axis_name, cfg)
     state_prop, poses = _propagate(state, scan, cfg)
     pts_und = imu_mod.undistort(
         scan.pts, scan.t_offs, scan.mask, poses, state_prop, rot_il, t_il
     )
-    ds_pts, ds_mask = voxelize.voxel_downsample(pts_und, scan.mask, cfg.ds_leaf, cfg.ds_capacity)
+    if axis_name is None:
+        ds_pts, ds_mask = voxelize.voxel_downsample(pts_und, scan.mask, cfg.ds_leaf, cfg.ds_capacity)
+    else:
+        ds_pts, ds_mask = voxelize.voxel_downsample(
+            axis_name.all_gather(pts_und), axis_name.all_gather(scan.mask), cfg.ds_leaf,
+            cfg.ds_capacity,
+        )
+        if query_axis is not None:
+            shard = cfg.ds_capacity // query_axis.size
+            lo = query_axis.index * shard
+            ds_pts, ds_mask = ds_pts[lo: lo + shard], ds_mask[lo: lo + shard]
 
     posterior, info, (nbr, nv) = lio.lio_update(
         state_prop, lidar_map, ds_pts, ds_mask, rot_il, t_il, cfg.map_cfg, cfg.lio_cfg,
-        extra_hth=extra_hth, extra_hty=extra_hty,
+        extra_hth=extra_hth, extra_hty=extra_hty, axis_name=query_axis, map_axis=map_axis,
     )
 
     jump = torch.linalg.vector_norm(posterior.pos - state_prop.pos)
@@ -198,16 +223,35 @@ def lio_scan_step(
     ds_mask = ds_mask & accept
     p_w = torch.where(torch.isfinite(p_w), p_w, 0.0)
     if cfg.lio_cfg.measurement_model == "surfel":
-        # No kNN cache: gate on the point's own voxel slab.
-        dd = _maybe_dedup(p_w, ds_mask, cfg.map_cfg)
+        # No kNN cache: gate on the point's own voxel slab. Every rank gates
+        # and inserts the whole scan: a replicated map stays identical, and
+        # a shard gates against its own voxels (a voxel it does not own
+        # reads as empty, and sharded_insert masks it off).
+        p_w_ins, m_ins = p_w, ds_mask
+        if query_axis is not None:
+            p_w_ins, m_ins = query_axis.all_gather(p_w), query_axis.all_gather(ds_mask)
+            if map_axis is not None:  # 2-D mesh: the returned cloud is whole too
+                p_w, ds_mask = p_w_ins, m_ins
+        dd = _maybe_dedup(p_w_ins, m_ins, cfg.map_cfg)
         add = vm.slab_insert_gate(
-            lidar_map, p_w, ds_mask, cfg.map_cfg,
+            lidar_map, p_w_ins, m_ins, cfg.map_cfg,
             cfg.lio_cfg.filter_size_map, cfg.lio_cfg.num_match_points, dedup=dd,
         )
-        lidar_map = vm.insert(lidar_map, p_w, add, cfg.map_cfg, dedup=dd)
+        if map_axis is not None:
+            lidar_map = vm.sharded_insert(lidar_map, p_w_ins, add, cfg.map_cfg, map_axis, dedup=dd)
+        else:
+            lidar_map = vm.insert(lidar_map, p_w_ins, add, cfg.map_cfg, dedup=dd)
     else:
         add = lio.map_insert_gate(p_w, ds_mask, nbr, nv, cfg.lio_cfg.filter_size_map)
-        lidar_map = vm.insert(lidar_map, p_w, add, cfg.map_cfg)
+        p_w_ins = p_w
+        if query_axis is not None:
+            p_w_ins, add = query_axis.all_gather(p_w), query_axis.all_gather(add)
+            if map_axis is not None:
+                p_w, ds_mask = p_w_ins, query_axis.all_gather(ds_mask)
+        if map_axis is not None:
+            lidar_map = vm.sharded_insert(lidar_map, p_w_ins, add, cfg.map_cfg, map_axis)
+        else:
+            lidar_map = vm.insert(lidar_map, p_w_ins, add, cfg.map_cfg)
 
     summary = step_summary(posterior, info, jump, accept)
     return posterior, lidar_map, info, (p_w, ds_mask), summary
@@ -220,7 +264,7 @@ def lio_scan_multi(
     rot_il: torch.Tensor,
     t_il: torch.Tensor,
     cfg: StepConfig,
-    axis_name: Optional[str] = None,
+    axis_name=None,
 ) -> Tuple[NavState, vm.VoxelHashMap, torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """K scan-end measurement updates chained: `scans` is a ScanInput whose
     leaves carry a leading K axis. Returns (posterior state, map, summaries
@@ -288,14 +332,19 @@ def bootstrap_map(
     rot_il: torch.Tensor,
     t_il: torch.Tensor,
     cfg: StepConfig,
-    axis_name: Optional[str] = None,
+    axis_name=None,
 ) -> vm.VoxelHashMap:
     """First-scan map initialization: downsample and insert at the current
-    pose, no filter update."""
-    if axis_name is not None or cfg.map_sharded:
-        raise NotImplementedError(_NO_MULTI_DEVICE)
-    ds_pts, ds_mask = voxelize.voxel_downsample(scan.pts, scan.mask, cfg.ds_leaf, cfg.ds_capacity)
+    pose, no filter update. With `axis_name` the scan arrives sharded and
+    is gathered first; a sharded arena inserts its owned voxels, replicas
+    insert the whole scan."""
+    pts, mask = scan.pts, scan.mask
+    if axis_name is not None:
+        pts, mask = axis_name.all_gather(pts), axis_name.all_gather(mask)
+    ds_pts, ds_mask = voxelize.voxel_downsample(pts, mask, cfg.ds_leaf, cfg.ds_capacity)
     _, p_w = lio.transform_to_world(ds_pts, state.rot, state.pos, rot_il, t_il)
+    if axis_name is not None and cfg.map_sharded:
+        return vm.sharded_insert(lidar_map, p_w, ds_mask, cfg.map_cfg, map_axis_of(axis_name))
     return vm.insert(lidar_map, p_w, ds_mask, cfg.map_cfg)
 
 
@@ -317,9 +366,9 @@ def _host(x) -> np.ndarray:
 
 
 class LivoPipeline:
-    """Host-side orchestrator, one device: owns the device state and feeds
-    the per-scan and per-frame programs the measurement groups of the
-    synchronizer (`io.sync`), one group at a time.
+    """Host-side orchestrator: owns the device state and feeds the per-scan
+    and per-frame programs the measurement groups of the synchronizer
+    (`io.sync`), one group at a time.
 
     `device=None` means the GPU and raises without one. Every processed
     update leaves one small summary (pose, and the effective count or the
@@ -329,16 +378,27 @@ class LivoPipeline:
     each scan's prior on the host) the updates are dispatched without a
     read: their summaries go into one device buffer, read in one copy by
     `flush_scans` every `scan_batch` scans, or, with 0, only at `finish`,
-    a checkpoint or `reanchor_map`."""
+    a checkpoint or `reanchor_map`.
+
+    Multi-device (`cfg.parallel`): inside an initialised torch.distributed
+    group every rank builds this pipeline on the same log and the scan step
+    runs over the group's mesh (`mesh`): points-sharded with a replicated
+    map, or, with parallel.map_sharded, over a hash-partitioned arena of
+    map.capacity slots per rank. parallel.n_devices must equal the group's
+    size; n_devices > 1 without a group raises (there is no silent
+    single-rank run). VIO and the back end run replicated on every rank
+    with identical inputs, but loop detections arrive on each rank's
+    background thread when they finish: `reanchor_map` applies rank 0's
+    decision and corrections on every rank. Only rank 0 writes files."""
 
     def __init__(self, cfg, dtype=torch.float32, device=None):
         self.device = _device.resolve(device)
-        if cfg.parallel.n_devices > 1 or cfg.parallel.map_sharded:
-            raise _not_ported("multi-device execution (parallel.n_devices, parallel.map_sharded)", 14)
         self.cfg = cfg
         self.step_cfg = StepConfig.from_config(cfg)
         self.dtype = dtype
         dev = self.device
+        self.mesh = self._make_mesh(cfg.parallel)
+        self.rank = 0 if self.mesh is None else self.mesh.axis.index
 
         rot = np.asarray(cfg.extrinsics.extrinsic_r, np.float32).reshape(3, 3)
         self.rot_il = torch.tensor(rot, dtype=dtype, device=dev)
@@ -418,6 +478,108 @@ class LivoPipeline:
         if self._batch_eligible:
             self._sum_buf = torch.zeros((self._sum_cap, 11), dtype=dtype, device=dev)
 
+    def _make_mesh(self, par):
+        """The mesh of cfg.parallel inside an initialised process group, or
+        None on a single process (the JAX package's checks first)."""
+        import dataclasses
+
+        import torch.distributed as dist
+
+        n_dev = int(par.n_devices)
+        if n_dev > 1:
+            if par.n_hosts > 1 and not par.map_sharded:
+                raise ValueError("parallel.n_hosts > 1 requires parallel.map_sharded")
+            if n_dev % par.n_hosts:
+                raise ValueError("n_devices must be divisible by n_hosts")
+            mp = self.cfg.lio.max_points
+            if (mp * 2) % n_dev or mp % n_dev:
+                raise ValueError(
+                    f"lio.max_points ({mp}) must be divisible by parallel.n_devices ({n_dev}) "
+                    "for point sharding"
+                )
+        if not (dist.is_available() and dist.is_initialized()):
+            if n_dev > 1:
+                raise ValueError(
+                    f"parallel.n_devices is {n_dev} but no torch.distributed process group is "
+                    "initialised (a world of 1 process): start one rank per device, e.g. "
+                    f"torchrun --nproc-per-node {n_dev} -m fastlivo_tpu_torch.run ..."
+                )
+            return None
+        world = dist.get_world_size()
+        if n_dev != world:
+            raise ValueError(
+                f"parallel.n_devices is {n_dev} but the torch.distributed process group has "
+                f"{world} ranks"
+            )
+        from fastlivo_tpu_torch import parallel
+
+        # In a group the mode follows map_sharded at any size, world 1 too.
+        self.step_cfg = dataclasses.replace(self.step_cfg, map_sharded=bool(par.map_sharded))
+        if par.n_hosts > 1:
+            mesh = parallel.make_mesh_2d(par.n_hosts, n_dev // par.n_hosts)
+        else:
+            mesh = parallel.make_mesh(n_dev)
+        self._sharded_step = parallel.make_sharded_lio_step(mesh, self.step_cfg)
+        self._sharded_boot = parallel.make_sharded_bootstrap(mesh, self.step_cfg)
+        return mesh
+
+    @property
+    def n_map_shards(self) -> int:
+        """Shard count of the map arena (1: replicated or one device)."""
+        if self.mesh is None or not self.step_cfg.map_sharded:
+            return 1
+        return self.mesh.map_axis.size
+
+    def global_map(self) -> vm.VoxelHashMap:
+        """The whole arena on every rank: the shards concatenated in rank
+        order along the capacity axis (the JAX package's global array), or
+        the map itself when it is not sharded. A collective: every rank
+        calls it."""
+        if self.n_map_shards == 1:
+            return self.map
+        ax = self.mesh.map_axis
+        return vm.VoxelHashMap(*(x if x.ndim == 0 else ax.all_gather(x) for x in self.map))
+
+    def place_map(self, m: vm.VoxelHashMap) -> vm.VoxelHashMap:
+        """This rank's part of a whole arena (`global_map`'s layout): its
+        shard's rows, or the arena itself when it is not sharded."""
+        if self.n_map_shards == 1:
+            return m
+        ax = self.mesh.map_axis
+        return vm.VoxelHashMap(*(
+            x if x.ndim == 0 else x.reshape(ax.size, -1, *x.shape[1:])[ax.index].clone()
+            for x in m
+        ))
+
+    def _lio_step(self, scan: ScanInput, extra=None):
+        """One scan step; the returned world cloud is the whole cloud on
+        every rank (in points mode each rank's step returns its slice, and
+        VIO and the loop back end need all of it)."""
+        if self.mesh is None:
+            return lio_scan_step(
+                self.state, self.map, scan, self.rot_il, self.t_il, self.step_cfg,
+                extra_hth=None if extra is None else extra[0],
+                extra_hty=None if extra is None else extra[1],
+            )
+        from fastlivo_tpu_torch import parallel
+
+        state, m, info, (cloud, mask), summary = self._sharded_step(
+            self.state, self.map, parallel.shard_scan(scan, self.mesh), self.rot_il, self.t_il,
+            *(extra or ()),
+        )
+        if not self.step_cfg.map_sharded:
+            cloud, mask = self.mesh.axis.all_gather(cloud), self.mesh.axis.all_gather(mask)
+        return state, m, info, (cloud, mask), summary
+
+    def _bootstrap(self, scan: ScanInput) -> vm.VoxelHashMap:
+        if self.mesh is None:
+            return bootstrap_map(self.map, scan, self.state, self.rot_il, self.t_il, self.step_cfg)
+        from fastlivo_tpu_torch import parallel
+
+        return self._sharded_boot(
+            self.map, parallel.shard_scan(scan, self.mesh), self.state, self.rot_il, self.t_il
+        )
+
     def _init_feed(self, scan: ScanInput):
         mask = _host(scan.imu.mask)
         if self.initializer.push(_host(scan.imu.gyr)[mask], _host(scan.imu.acc)[mask]):
@@ -450,7 +612,7 @@ class LivoPipeline:
             self._first_scan_t is not None and t_abs - self._first_scan_t < self._init_time
         ):
             self._advance(scan)
-            self.map = bootstrap_map(self.map, scan, self.state, self.rot_il, self.t_il, self.step_cfg)
+            self.map = self._bootstrap(scan)
             self._epoch_stamps.append(t_abs)
             self.first_scan = False
             return None
@@ -460,9 +622,7 @@ class LivoPipeline:
             if self._pending_n_scans == 0:
                 # Rollback target if every scan of this batch is rejected.
                 self._batch_prev_cloud = (self.world_cloud, self.world_mask)
-            self.state, self.map, _, (self.world_cloud, self.world_mask), summary = lio_scan_step(
-                self.state, self.map, scan, self.rot_il, self.t_il, self.step_cfg
-            )
+            self.state, self.map, _, (self.world_cloud, self.world_mask), summary = self._lio_step(scan)
             self._epoch_stamps.append(t_abs)
             self._defer(summary)
             if self._retain_clouds:
@@ -482,10 +642,8 @@ class LivoPipeline:
             sp, _ = _propagate(self.state, scan, self.step_cfg)
             extra = self.gnss.observe(t_abs, _host(sp.rot), _host(sp.pos))
             self.gnss_blocks += extra is not None
-        self.state, self.map, info, (self.world_cloud, self.world_mask), summary = lio_scan_step(
-            self.state, self.map, scan, self.rot_il, self.t_il, self.step_cfg,
-            extra_hth=None if extra is None else extra[0],
-            extra_hty=None if extra is None else extra[1],
+        self.state, self.map, info, (self.world_cloud, self.world_mask), summary = self._lio_step(
+            scan, extra
         )
         self._epoch_stamps.append(t_abs)
         s = self._record(t_abs, summary)
@@ -526,7 +684,7 @@ class LivoPipeline:
             self.state, self.visual_map, scan, img, self.world_cloud, self.world_mask,
             self.rot_ci, self.t_ci, self.step_cfg,
         )
-        if self.cfg.runtime.img_save_en:
+        if self.cfg.runtime.img_save_en and self.rank == 0:
             self._dump_annotated_frame(img)
         if self._batch_eligible:
             self.vio_before_lio += not (self.n_effective or self._pending_n_scans)
@@ -609,11 +767,52 @@ class LivoPipeline:
         """Re-anchor the live voxel arena with the loop-corrected keyframe
         poses: every arena point moves by the rigid correction of the
         keyframe nearest in time to its insert epoch, and the arena is
-        rebuilt by `vm.reanchor`. Returns True if a correction was applied."""
+        rebuilt by `vm.reanchor`. Returns True if a correction was applied.
+
+        In a process group every rank calls it, and rank 0 decides: it
+        drains its loop back end's pending detections, and its go/no-go and
+        corrections are broadcast. A rank whose background detections lag
+        (or whose loops differ) thus applies the same corrections as the
+        others, so the replicas stay equal and the shards' collectives
+        match."""
+        if self.mesh is None:
+            corr = self._loop_corrections()
+        else:
+            self.flush_scans()
+            if self.loop_backend is not None:
+                self.loop_backend.drain()
+            corr = self._replicate_corrections(self._loop_corrections() if self.rank == 0 else None)
+        if corr is None:
+            return False
+        seg, r_seg, t_seg, newest_stamp = corr
+        dev = self.device
+        # A sharded arena re-inserts each corrected chunk on its new owner
+        # (corrections move points across voxel and shard boundaries).
+        sharded = {"axis": self.mesh.map_axis} if self.mesh is not None and self.step_cfg.map_sharded else {}
+        self.map = vm.reanchor(
+            self.map,
+            self.step_cfg.map_cfg,
+            torch.as_tensor(seg, dtype=torch.int32, device=dev),
+            torch.as_tensor(r_seg, dtype=self.dtype, device=dev),
+            torch.as_tensor(t_seg, dtype=self.dtype, device=dev),
+            **sharded,
+        )
+        # The rebuild advances the epoch by its chunk count; the re-anchored
+        # content is attributed to the newest keyframe (consistent with the
+        # corrected trajectory), so a second correction segments correctly.
+        new_epoch = int(self.map.epoch)
+        if new_epoch > len(self._epoch_stamps):
+            self._epoch_stamps.extend([newest_stamp] * (new_epoch - len(self._epoch_stamps)))
+        return True
+
+    def _loop_corrections(self):
+        """From the loop back end's corrected keyframes: (seg_of_epoch (E,),
+        r_seg (K, 3, 3), t_seg (K, 3), the newest keyframe's stamp), or None
+        when there is nothing to correct."""
         if self.loop_backend is None or not self.loop_backend.loops:
-            return False
+            return None
         if not self._epoch_stamps:
-            return False
+            return None
         self.flush_scans()
         g = self.loop_backend.graph
         rots_c, trans_c = self.loop_backend.corrected_trajectory()
@@ -621,7 +820,7 @@ class LivoPipeline:
         trans_d = np.asarray(g.trans)
         kf_stamps = np.asarray(g.stamps)
         if len(kf_stamps) == 0:
-            return False
+            return None
         # Per-keyframe rigid correction: corrected = R_seg @ drifted + t_seg.
         r_seg = rots_c @ rots_d.transpose(0, 2, 1)
         t_seg = trans_c - np.einsum("kij,kj->ki", r_seg, trans_d)
@@ -630,35 +829,53 @@ class LivoPipeline:
         hi = np.clip(np.searchsorted(kf_stamps, ep), 0, len(kf_stamps) - 1)
         lo = np.clip(hi - 1, 0, len(kf_stamps) - 1)
         seg = np.where(np.abs(ep - kf_stamps[lo]) < np.abs(ep - kf_stamps[hi]), lo, hi)
-        dev = self.device
-        self.map = vm.reanchor(
-            self.map,
-            self.step_cfg.map_cfg,
-            torch.as_tensor(seg, dtype=torch.int32, device=dev),
-            torch.as_tensor(r_seg, dtype=self.dtype, device=dev),
-            torch.as_tensor(t_seg, dtype=self.dtype, device=dev),
-        )
-        # The rebuild advances the epoch by its chunk count; the re-anchored
-        # content is attributed to the newest keyframe (consistent with the
-        # corrected trajectory), so a second correction segments correctly.
-        new_epoch = int(self.map.epoch)
-        if new_epoch > len(self._epoch_stamps):
-            self._epoch_stamps.extend(
-                [float(kf_stamps[-1])] * (new_epoch - len(self._epoch_stamps))
-            )
-        return True
+        return seg, r_seg, t_seg, float(kf_stamps[-1])
+
+    def _replicate_corrections(self, corr):
+        """Rank 0's `_loop_corrections` on every rank (None on every rank
+        when rank 0 has none): two broadcasts, a header of (go, E, K, newest
+        stamp) and then, on go, the corrections packed in f64."""
+        ax = self.mesh.axis
+        head = torch.zeros(4, dtype=torch.float64, device=self.device)
+        if corr is not None:
+            head = torch.tensor([1.0, len(corr[0]), len(corr[1]), corr[3]], dtype=torch.float64,
+                                device=self.device)
+        go, n_ep, k, newest_stamp = ax.broadcast(head).tolist()
+        if not go:
+            return None
+        n_ep, k = int(n_ep), int(k)
+        if corr is not None:
+            body = np.concatenate([corr[0].ravel(), corr[1].ravel(), corr[2].ravel()])
+            body = torch.as_tensor(body, dtype=torch.float64, device=self.device)
+        else:
+            body = torch.zeros(n_ep + 12 * k, dtype=torch.float64, device=self.device)
+        body = ax.broadcast(body).cpu().numpy()
+        return (body[:n_ep].astype(np.int64), body[n_ep: n_ep + 9 * k].reshape(k, 3, 3),
+                body[n_ep + 9 * k:].reshape(k, 3), newest_stamp)
+
+    def map_cloud(self) -> np.ndarray:
+        """Every point stored in the arena, (N, 3) f32 on the host; a sharded
+        arena's shards are gathered in rank order (a collective)."""
+        cloud = export.map_to_cloud(self.map)
+        if self.n_map_shards == 1:
+            return cloud
+        local = torch.as_tensor(cloud).to(self.device)
+        return self.mesh.map_axis.all_gather_ragged(local).cpu().numpy()
 
     def finish(self, out_dir: Optional[str] = None):
         """End-of-run outputs: drain the loop back end, then write
         `tum.txt`, `loop_tum.txt` (the loop-corrected keyframes, when the
-        back end ran) and `map.pcd` to out_dir (when given). Returns the
-        corrected keyframe trajectory (rots, trans), or None."""
+        back end ran) and `map.pcd` to out_dir (when given; on rank 0 only,
+        every rank gathering the map cloud). Returns the corrected keyframe
+        trajectory (rots, trans), or None."""
         self.flush_scans()
         corrected = None
         if self.loop_backend is not None:
             self.loop_backend.finish()
             corrected = self.loop_backend.corrected_trajectory()
         if out_dir is not None:
+            cloud = self.map_cloud()
+        if out_dir is not None and self.rank == 0:
             os.makedirs(out_dir, exist_ok=True)
             export.write_tum(os.path.join(out_dir, "tum.txt"), self.trajectory)
             if corrected is not None and len(corrected[1]):
@@ -670,7 +887,7 @@ class LivoPipeline:
                     for i in range(len(trans))
                 ]
                 export.write_tum(os.path.join(out_dir, "loop_tum.txt"), traj)
-            export.write_pcd(os.path.join(out_dir, "map.pcd"), export.map_to_cloud(self.map))
+            export.write_pcd(os.path.join(out_dir, "map.pcd"), cloud)
         return corrected
 
     @property

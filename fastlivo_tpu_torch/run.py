@@ -7,6 +7,20 @@ fastlivo_tpu/run.py).
 The runner streams the log through the measurement synchronizer and the
 pipeline on one device (the GPU unless `--device cpu`), prints per-stage
 timing at the end, and writes tum.txt, map.pcd and time_log.csv to --out.
+
+Multi-device: one process per rank under torchrun, every rank reading the
+log and rank 0 writing the outputs,
+
+    torchrun --nproc-per-node W -m fastlivo_tpu_torch.run --config C \
+        --log-path L --out O --set parallel.n_devices=W [--set parallel.map_sharded=True]
+
+(`--log-path` is `--log`'s other name: torchrun's own parser reads `--log`
+as an ambiguous abbreviation of its `--log-dir`/`--logs-specs` in some
+torch versions, and refuses the command line.)
+
+NCCL on the GPUs (one rank per GPU, rank r on cuda:LOCAL_RANK); with
+`--device cpu` gloo CPU ranks. `--dist-backend gloo --device cuda:0` puts
+every rank on one GPU.
 """
 
 from __future__ import annotations
@@ -20,11 +34,13 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fastlivo_tpu_torch.io import features, logio
 from fastlivo_tpu_torch.io.sensors import ImageFrame, ImuSample, LidarScan
 from fastlivo_tpu_torch.io.sync import LidarMeasureGroup, MeasurementSynchronizer, WindowBuilder
 from fastlivo_tpu_torch.models.pipeline import LivoPipeline, ScanInput
+from fastlivo_tpu_torch.parallel.distributed import initialize_distributed
 from fastlivo_tpu_torch.utils import checkpoint as ckpt
 from fastlivo_tpu_torch.utils.config import load_config
 from fastlivo_tpu_torch.utils.timing import StageTimer
@@ -104,6 +120,7 @@ def run_log(
         cfg.runtime.out_dir = out_dir
 
     pipe = LivoPipeline(cfg, device=device)
+    progress = progress and pipe.rank == 0  # one rank reports
     skip_scans = 0
     if resume_from is not None:
         skip_scans = int(ckpt.load_pipeline(resume_from, pipe).get("n_scans", 0))
@@ -168,7 +185,7 @@ def run_log(
         )
         print(timer.report())
     pipe.finish(out_dir)
-    if out_dir is not None:
+    if out_dir is not None and pipe.rank == 0:
         timer.write_csv(os.path.join(out_dir, "time_log.csv"))
     return pipe
 
@@ -182,7 +199,7 @@ def _literal(text: str):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("--log", required=True, help="FLVO measurement log")
+    parser.add_argument("--log", "--log-path", dest="log", required=True, help="FLVO measurement log")
     parser.add_argument("--config", default=None, help="reference-format YAML")
     parser.add_argument("--out", default=None, help="output directory")
     parser.add_argument("--max-scans", type=int, default=None)
@@ -195,8 +212,13 @@ def main(argv=None):
         "--set", action="append", default=[], help="override, e.g. --set vio.img_enable=0"
     )
     parser.add_argument(
-        "--device", default="cuda", choices=("cuda", "cpu"),
-        help="where the pipeline runs (default cuda; it raises when there is no GPU)",
+        "--device", default="cuda",
+        help="where the pipeline runs: cuda (the default; cuda:LOCAL_RANK under torchrun; it "
+             "raises when there is no GPU), cuda:N, or cpu",
+    )
+    parser.add_argument(
+        "--dist-backend", default=None, choices=("nccl", "gloo"),
+        help="torch.distributed backend under torchrun (default: nccl on the GPU, gloo on the CPU)",
     )
     args = parser.parse_args(argv)
 
@@ -205,18 +227,25 @@ def main(argv=None):
         k, v = s.split("=", 1)
         overrides[k] = _literal(v)
     cfg = load_config(args.config, overrides)
-    return run_log(
-        args.log,
-        cfg,
-        out_dir=args.out,
-        max_scans=args.max_scans,
-        checkpoint_every=args.checkpoint_every,
-        checkpoint_path=args.checkpoint,
-        resume_from=args.resume,
-        profile_dir=args.profile,
-        dump_states=args.dump_states,
-        device=None if args.device == "cuda" else "cpu",
-    )
+    device = None if args.device == "cuda" else args.device
+    had_group = dist.is_initialized()  # a caller's own group stays up
+    grouped = initialize_distributed(backend=args.dist_backend, device=device) and not had_group
+    try:
+        return run_log(
+            args.log,
+            cfg,
+            out_dir=args.out,
+            max_scans=args.max_scans,
+            checkpoint_every=args.checkpoint_every,
+            checkpoint_path=args.checkpoint,
+            resume_from=args.resume,
+            profile_dir=args.profile,
+            dump_states=args.dump_states,
+            device=device,
+        )
+    finally:
+        if grouped:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

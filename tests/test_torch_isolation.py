@@ -1,6 +1,8 @@
-"""The port stands alone: fastlivo_tpu_torch and chip_smoke.py import with
-jax blocked and never import the JAX package; a CPU call never launches
-the CUDA kernel; chip_smoke.py refuses to run without a GPU."""
+"""The port stands alone: fastlivo_tpu_torch (parallel/ included) and
+chip_smoke.py import with jax blocked and never import the JAX package; a
+CPU call never launches the CUDA kernel; chip_smoke.py refuses to run
+without a GPU; multi-device configurations raise where the process group
+does not fit them."""
 
 import ast
 import os
@@ -54,7 +56,9 @@ def test_every_module_is_walked():
                 "utils.config", "utils.checkpoint", "utils.timing", "utils.metrics", "ops.earth",
                 "models.gnss", "io.annotate", "backend.std_loop", "backend.pose_graph",
                 "backend.loop_manager", "backend.superpoint_lightglue", "backend.visual_verify",
-                "io.rosbag", "io.lz4f", "io.preprocess", "io.features", "native", "ops.frustum"):
+                "io.rosbag", "io.lz4f", "io.preprocess", "io.features", "native", "ops.frustum",
+                "parallel", "parallel.axis", "parallel.sharded", "parallel.distributed",
+                "parallel.dryrun"):
         assert f"fastlivo_tpu_torch.{mod}" in names
 
 
@@ -105,38 +109,45 @@ def test_back_end_needs_a_gpu_unless_told(name):
 
 
 @pytest.mark.parametrize(
-    "setting,item",
+    "setting,match",
     [
-        ({"parallel.n_devices": 2}, 14),
-        ({"parallel.map_sharded": True}, 14),
-        ({"parallel.n_devices": 4}, 14),
-        ({"parallel.n_devices": 2, "parallel.map_sharded": True}, 14),
+        ({"parallel.n_devices": 2}, r"n_devices is 2 but no torch.distributed process group .* world of 1"),
+        ({"parallel.n_devices": 2, "parallel.n_hosts": 2}, r"n_hosts > 1 requires parallel.map_sharded"),
+        ({"parallel.n_devices": 3}, r"lio.max_points \(16384\) must be divisible by parallel.n_devices \(3\)"),
+        ({"parallel.n_devices": 2, "parallel.map_sharded": True},
+         r"n_devices is 2 but no torch.distributed process group .* world of 1"),
     ],
+    ids=["no_group", "n_hosts_without_map_sharded", "budget_not_divisible", "no_group_map_sharded"],
 )
-def test_out_of_scope_switches_raise(setting, item):
-    """Only the multi-device switches are left unported (lio.scan_batch is
-    ported: tests/test_torch_scan_batch.py)."""
+def test_out_of_scope_switches_raise(setting, match):
+    """Multi-device configurations raise, never degrade to one rank, where
+    the world does not fit them: n_devices > 1 outside a process group of
+    that size (naming both sizes), n_hosts > 1 without map_sharded, and a
+    point budget the world size does not divide."""
     from fastlivo_tpu_torch.models.pipeline import LivoPipeline
     from fastlivo_tpu_torch.utils.config import load_config
 
     cfg = load_config(None, {"map.capacity": 1 << 10, "vio.img_enable": False, **setting})
-    with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
+    with pytest.raises(ValueError, match=match):
         LivoPipeline(cfg, device="cpu")
 
 
 def test_out_of_scope_runner_and_reanchor_raise(tmp_path):
-    """The only NotImplementedErrors left in the port are the multi-device
-    ones; feature extraction and scan batching run, and reanchor_map,
-    without a loop back end, has nothing to apply."""
+    """No NotImplementedError is left in the port; map_sharded without a
+    process group runs on one device (as in the JAX package); feature
+    extraction and scan batching run, and reanchor_map, without a loop back
+    end, has nothing to apply."""
     from fastlivo_tpu_torch import run
     from fastlivo_tpu_torch.io import logio, synthetic
     from fastlivo_tpu_torch.models.pipeline import LivoPipeline
     from fastlivo_tpu_torch.utils.config import load_config
 
     for path in PKG.rglob("*.py"):
-        for line in path.read_text().splitlines():
-            if "raise NotImplementedError" in line or "raise _not_ported" in line:
-                assert "_NO_MULTI_DEVICE" in line or "item 14" in line or ", 14)" in line, f"{path}: {line}"
+        text = path.read_text()
+        assert "NotImplementedError" not in text and "_not_ported" not in text, path
+    one = LivoPipeline(load_config(None, {"map.capacity": 1 << 10, "vio.img_enable": False,
+                                          "parallel.map_sharded": True}), device="cpu")
+    assert one.mesh is None and one.n_map_shards == 1 and not one.step_cfg.map_sharded
     cfg = load_config(None, {"map.capacity": 1 << 10, "vio.img_enable": False, "lio.scan_batch": 0,
                              "preprocess.feature_extract_en": True, "imu.init_count": 5,
                              "lio.max_points": 1024, "imu.imu_int_frame": 32})
@@ -180,6 +191,9 @@ def test_back_end_constructs_with_jax_blocked(tmp_path):
 
 
 def test_sources_never_import_the_jax_package():
+    assert {"axis.py", "sharded.py", "distributed.py", "dryrun.py"} <= {
+        p.name for p in _port_sources() if p.parent.name == "parallel"
+    }
     for path in _port_sources():
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

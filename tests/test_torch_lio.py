@@ -7,6 +7,8 @@ iteration count must match exactly; the posterior agrees to f32 rounding
 of the 6x6 reductions over ~1000 points (1e-5 m, 1e-5 rad).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -116,16 +118,54 @@ def test_lio_update(case):
     assert np.linalg.norm(tpost.pos.numpy() - truth) < np.linalg.norm(st["pos"] - truth)
 
 
-def test_unported_models_raise():
-    # Every single-device measurement model is ported; the multi-device
-    # forms of the update and the step still raise, for each model.
-    for model in ("surfel", "point_to_plane", "vgicp"):
-        cfg = TL.LioConfig(measurement_model=model)
-        with pytest.raises(NotImplementedError, match="item 14"):
-            TL.lio_update(None, None, None, None, None, None, TMAP, cfg, axis_name="x")
-        with pytest.raises(NotImplementedError, match="item 14"):
-            TL.lio_update(None, None, None, None, None, None, TMAP, cfg, map_axis="x")
-        with pytest.raises(NotImplementedError, match="item 14"):
-            TP.lio_scan_step(None, None, None, None, None, TP.StepConfig(lio_cfg=cfg), axis_name="x")
-        with pytest.raises(NotImplementedError, match="item 14"):
-            TP.lio_scan_step(None, None, None, None, None, TP.StepConfig(lio_cfg=cfg, map_sharded=True))
+def test_unported_models_raise(case, tmp_path):
+    """The multi-device forms of the update (they raised before the port had
+    them): in a gloo world of 1, every measurement model's lio_update with
+    a points axis, and with a map axis, equals the call without one, and so
+    does the whole step in both modes. A world of 1 sums and gathers over
+    one rank, so the results are bit for bit those of one device."""
+    import torch.distributed as dist
+
+    from fastlivo_tpu_torch import parallel
+
+    mapd, st, ds, mask = case
+    i3, z3 = torch.eye(3), torch.zeros(3)
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        ax = parallel.make_mesh(1).axis
+        m = convert.voxel_map_from_numpy(mapd, "cpu")
+        for model in ("surfel", "point_to_plane", "vgicp"):
+            cfg = TL.LioConfig(measurement_model=model)
+            runs = {
+                kind: TL.lio_update(convert.nav_state_from_numpy(st, "cpu"), m, torch.tensor(ds),
+                                    torch.tensor(mask), i3, z3, TMAP, cfg, **kw)
+                for kind, kw in (("none", {}), ("axis", dict(axis_name=ax)), ("map", dict(map_axis=ax)))
+            }
+            want, winfo, _ = runs["none"]
+            assert int(winfo.n_effective) > 100, model
+            for kind in ("axis", "map"):
+                got, info, _ = runs[kind]
+                assert int(info.n_effective) == int(winfo.n_effective), (model, kind)
+                assert int(info.iterations) == int(winfo.iterations), (model, kind)
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b), (model, kind)
+        scene = scene_mod.Scene(8192, 8, seed=5)
+        step_cfg = TP.StepConfig(map_cfg=TMAP, lio_cfg=TL.LioConfig(measurement_model="surfel"),
+                                 ds_capacity=4096, imu_window=8)
+        scan = scene_mod.to_scan_input(scene.lio_scan(1), "cpu")
+        outs = []
+        for kw in ({}, dict(axis_name=ax)):
+            for sharded in (False, True):
+                cfg = dataclasses.replace(step_cfg, map_sharded=sharded)
+                s1, m1, info, cloud, summary = TP.lio_scan_step(
+                    convert.nav_state_from_numpy(st, "cpu"), convert.voxel_map_from_numpy(mapd, "cpu"),
+                    scan, i3, z3, cfg, **kw)
+                outs.append((summary, m1.meta, m1.counts, cloud[0]))
+                if not kw:
+                    break  # map_sharded without an axis is the plain step
+        assert int(outs[0][0][7]) > 100
+        for out in outs[1:]:
+            for a, b in zip(out, outs[0]):
+                assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
