@@ -114,6 +114,31 @@ result line without a CUDA device):
        that moves most voxels to another owner: no point dropped, every
        key on its owner; its ms.
 
+8. matcher training (`backend/train_matcher.py`, the sequence of its
+   `main`) at the JAX script's default recipe, uncut: 384 pairs (768
+   rendered at 320x256) on the card, SuperPoint at its full architecture
+   for 3,000 steps at batch 8, LightGlue (3 layers, 256 keypoints) for
+   2,500 steps at batch 4 (each loop replays a CUDA graph of its step
+   after 3 eager steps), the f16 npz files into a temporary directory.
+   Launch counts are reset just before and read just after (the path runs
+   neither kernel). Gates: finite losses, each network's mean loss over
+   the last 50 steps below its first 5 steps' mean, n_valid > 0, the first
+   32-pair chunk's overlap flags equal the CPU port's; on the three pairs
+   of tests/test_superpoint_lightglue.py::test_trained_matcher_beats_classical
+   (rendered by the port) the saved artifact beats OrientedPatchMatcher's
+   match ratio on every pair and by > 1.5x on the mean (the committed
+   weights' ratios recorded beside); the saved artifact gives the matches
+   of the in-memory model with f16-rounded weights; one SuperPoint and one
+   LightGlue step on the card against the CPU port (losses within rtol
+   1e-4; in float32 all gradients together within 1e-4 relative L2, in
+   float64 every gradient tensor); 12 graphed steps of each network
+   against the same steps run eagerly, no farther apart than two eager
+   runs. Records ms per step (CUDA events, median after 20 steps) and the
+   eager ms per step, FLOPs per step and their f32 peak share, host syncs
+   inside the step loops (and where), peak memory, seconds per stage,
+   `evaluate()`'s six adversarial pairs, whether two card steps repeat bit
+   for bit.
+
 The last two lines of standard output are the kernels' JSON record and
 `{"ok": true, "device": {...}}`. The scene helpers (`Scene`) are plain
 numpy so the CPU tests can feed the same inputs to both packages.
@@ -2551,6 +2576,412 @@ def phase_multi(device, cli_dir, work_dir):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: matcher training on the card (backend/train_matcher.py), the JAX
+# script's default recipe at its full widths.
+# ---------------------------------------------------------------------------
+
+P8_RECIPE = dict(pairs=384, steps_sp=3000, steps_lg=2500, batch=8, lg_layers=3, seed=0)
+P8_WARMUP = 20  # steps left out of the per-step median
+P8_TOL = 1e-4  # card against CPU: loss rtol, gradient relative L2
+P8_GATE_MARGIN = 1.5  # learned mean match ratio over the classical mean
+
+
+def _rotvec(v):
+    """Rotation matrix of a rotation vector (Rodrigues, float64)."""
+    v = np.asarray(v, np.float64)
+    th = np.linalg.norm(v)
+    if th == 0.0:
+        return np.eye(3)
+    k = v / th
+    kx = np.array([[0.0, -k[2], k[1]], [k[2], 0.0, -k[0]], [-k[1], k[0], 0.0]])
+    return np.eye(3) + np.sin(th) * kx + (1.0 - np.cos(th)) * kx @ kx
+
+
+def matcher_gate_pairs(device):
+    """The three viewpoint + illumination pairs of
+    tests/test_superpoint_lightglue.py::test_trained_matcher_beats_classical,
+    rendered by the port on `device` (NumPy images)."""
+    import torch
+
+    from fastlivo_tpu_torch.io import render
+    from fastlivo_tpu_torch.ops.camera import Pinhole
+
+    cam = Pinhole(width=320, height=256, fx=200.0, fy=200.0, cx=160.0, cy=128.0)
+
+    def view(rot_wc, pos):
+        rcw = np.asarray(rot_wc, np.float32).T
+        pcw = -rcw @ np.asarray(pos, np.float32)
+        return render.render_room(cam, torch.as_tensor(rcw).to(device), torch.as_tensor(pcw).to(device)).cpu().numpy()
+
+    base = _rotvec([-np.pi / 2, 0.0, 0.0])
+    rng = np.random.default_rng(5)
+    pairs = []
+    for _ in range(3):
+        yaw = rng.uniform(0, 2 * np.pi)
+        r1 = base @ _rotvec([0.0, 0.0, yaw])
+        o1 = np.array([rng.uniform(-2, 2), rng.uniform(-2, 2), 1.5])
+        img1 = view(r1, o1)
+        img2 = view(r1 @ _rotvec([0.05, 0.03, 0.8]), o1 + np.array([0.7, 0.4, -0.3]))
+        pairs.append((img1, 255.0 * np.clip(img2 / 255.0, 0, 1) ** 1.6 * 0.8 + 20.0))
+    return pairs
+
+
+def train_step_card_vs_cpu(device, ds, lg_ds, batch_sp, batch_lg, seed=0, lg_layers=3):
+    """One SuperPoint and one LightGlue training step's loss and gradients
+    on the card and on the CPU port, from `init_*(seed)` weights and the
+    same batch (the first rows of `ds` / `lg_ds`, augmentation drawn once on
+    the CPU), in float32 (TF32 off, as training runs) and in float64.
+
+    Per network and dtype: the loss's relative error, the gradients' global
+    relative L2 error, and each gradient tensor's relative L2 error (the
+    largest, and its tensor). Gradients that are zero in exact arithmetic
+    (LightGlue's cross-attention key biases: a softmax ignores a constant
+    per query) are rounding noise on both devices; they are counted apart,
+    by their norm against the global gradient norm. Also: whether two card
+    SuperPoint steps in float32 repeat bit for bit."""
+    import torch
+
+    from fastlivo_tpu_torch import convert
+    from fastlivo_tpu_torch.backend import superpoint_lightglue as spl
+    from fastlivo_tpu_torch.backend import train_matcher as tm
+
+    aug = tm.superpoint_sampler(batch_sp, batch_sp, seed + 1, "cpu")(0)
+    sp_np, lg_np = spl.init_superpoint(seed), spl.init_lightglue(seed, n_layers=lg_layers)
+
+    def cast(t, dev, dtype):
+        return t.to(dev, dtype) if t.is_floating_point() else t.to(dev)
+
+    def sp_step(dev, dtype):
+        sp = convert.superpoint_from_numpy(sp_np, device=dev).to(dtype)
+        b = {k: cast(ds[k][:batch_sp], dev, dtype) for k in ("img0", "img1", "det0", "det1", "corr01", "corr10")}
+        loss = tm.superpoint_loss(sp, tm.augment(b["img0"], cast(aug["aug0"], dev, dtype)),
+                                  tm.augment(b["img1"], cast(aug["aug1"], dev, dtype)),
+                                  b["det0"], b["det1"], b["corr01"], b["corr10"])
+        grads = torch.autograd.grad(loss, list(sp.parameters()))
+        return loss.detach().cpu(), {n: g.cpu() for (n, _), g in zip(sp.named_parameters(), grads)}
+
+    def lg_step(dev, dtype):
+        lg = convert.lightglue_from_numpy(lg_np, device=dev).to(dtype)
+        b = {k: cast(v[:batch_lg], dev, dtype) for k, v in lg_ds.items()}
+        size = torch.tensor([tm.CAM_W, tm.CAM_H], dtype=dtype, device=dev)
+        loss = tm.lightglue_loss(lg, b, size)
+        grads = torch.autograd.grad(loss, list(lg.parameters()))
+        return loss.detach().cpu(), {n: g.cpu() for (n, _), g in zip(lg.named_parameters(), grads)}
+
+    def compare(card, cpu):
+        (lc, gc), (lh, gh) = card, cpu
+        norm = torch.linalg.vector_norm
+        g_all = float(norm(torch.stack([norm(g.double()) for g in gh.values()])))
+        d_all = float(norm(torch.stack([norm((gc[n] - gh[n]).double()) for n in gh])))
+        zero = [n for n in gh if float(norm(gh[n].double())) <= 1e-9 * g_all]
+        rel = {n: float(norm((gc[n] - gh[n]).double()) / norm(gh[n].double())) for n in gh if n not in zero}
+        worst = max(rel, key=rel.get)
+        return dict(loss_card=float(lc), loss_cpu=float(lh), loss_rel_err=abs(float(lc) - float(lh)) / abs(float(lh)),
+                    grad_global_rel_l2=d_all / g_all, grad_rel_l2_max=rel[worst], grad_rel_l2_worst=worst,
+                    n_grads=len(gh), zero_grads=zero,
+                    zero_grads_max_over_global=max([float(norm(gc[n].double())) / g_all for n in zero], default=0.0))
+
+    out = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        sp_card = sp_step(device, dtype)
+        out[f"superpoint_{tag}"] = compare(sp_card, sp_step("cpu", dtype))
+        out[f"lightglue_{tag}"] = compare(lg_step(device, dtype), lg_step("cpu", dtype))
+        if dtype is torch.float32:
+            again = sp_step(device, dtype)
+            out["superpoint_f32"]["card_repeats_bitwise"] = bool(
+                torch.equal(sp_card[0], again[0]) and all(torch.equal(sp_card[1][n], again[1][n]) for n in again[1]))
+    return out
+
+
+def card_vs_cpu_failures(cmp, tol=P8_TOL):
+    """The gates on `train_step_card_vs_cpu`: every loss within `tol`
+    relative; in float32 all gradients together within `tol` relative L2;
+    in float64 every gradient tensor within `tol` relative L2 and the
+    exactly-zero ones below 1e-9 of the global norm on the card too."""
+    bad = []
+    for key, c in cmp.items():
+        if c["loss_rel_err"] > tol or c["grad_global_rel_l2"] > tol:
+            bad.append(key)
+        elif key.endswith("f64") and (c["grad_rel_l2_max"] > tol or c["zero_grads_max_over_global"] > 1e-9):
+            bad.append(key)
+    return bad
+
+
+def graphed_vs_eager(device, ds, lg_ds, n_valid, batch_sp, batch_lg, steps=12, seed=0, lg_layers=3):
+    """`steps` training steps of each network through `train_matcher.fit`
+    (CUDA-graph replay after its eager warm-up) against the same steps run
+    eagerly, twice, from the same draws: per-step loss relative errors,
+    final weight differences (largest, and the share above 1e-5: Adam's
+    early steps move a weight by about lr sign(g), so a rounding of a
+    near-zero g moves it by up to 2 lr), and ms per step (CUDA events over
+    the steps after the warm-up). The eager runs differ from each other
+    too (cuDNN's weight gradients and the index backward use atomics)."""
+    import torch
+
+    from fastlivo_tpu_torch import convert
+    from fastlivo_tpu_torch.backend import superpoint_lightglue as spl
+    from fastlivo_tpu_torch.backend import train_matcher as tm
+    from fastlivo_tpu_torch.backend.optim import ClipAdamCosine
+
+    sp_draw = tm.superpoint_sampler(n_valid, batch_sp, seed + 1, device)
+    lg_draw = tm.lightglue_sampler(n_valid, batch_lg, seed + 2, device)
+    sp_draws = [sp_draw(i) for i in range(steps)]
+    lg_draws = [lg_draw(i) for i in range(steps)]
+    size = torch.tensor([tm.CAM_W, tm.CAM_H], dtype=torch.float32, device=device)
+
+    def sp_loss(sp, b):
+        idx = b["idx"]
+        return tm.superpoint_loss(sp, tm.augment(ds["img0"][idx], b["aug0"]), tm.augment(ds["img1"][idx], b["aug1"]),
+                                  ds["det0"][idx], ds["det1"][idx], ds["corr01"][idx], ds["corr10"][idx])
+
+    def lg_loss(lg, b):
+        return tm.lightglue_loss(lg, {k: v[b["idx"]] for k, v in lg_ds.items()}, size)
+
+    def timed(fn):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return out, ev[0].elapsed_time(ev[1])
+
+    def eager(make, lr, draws, loss):
+        mod = make()
+        params = list(mod.parameters())
+        opt = ClipAdamCosine(params, lr, steps)
+        losses = []
+        for b in draws[:tm.GRAPH_WARMUP]:
+            l = loss(mod, b)
+            opt.step(torch.autograd.grad(l, params))
+            losses.append(l.detach())
+
+        def rest():
+            for b in draws[tm.GRAPH_WARMUP:]:
+                l = loss(mod, b)
+                opt.step(torch.autograd.grad(l, params))
+                losses.append(l.detach())
+
+        _, ms = timed(rest)
+        return torch.stack(losses).cpu(), [p.detach().cpu() for p in params], ms / (steps - tm.GRAPH_WARMUP)
+
+    def compare(a, b, lr):
+        diff = torch.cat([(x - y).abs().reshape(-1) for x, y in zip(a[1], b[1])])
+        return dict(loss_rel_err_max=float(((a[0] - b[0]).abs() / b[0].abs()).max()),
+                    weight_max_abs_diff=float(diff.max()), weight_share_above_1e5=float((diff > 1e-5).float().mean()),
+                    two_lr=2 * lr)
+
+    out = {}
+    for name, make, lr, draws, loss, train in (
+        ("superpoint", lambda: convert.superpoint_from_numpy(spl.init_superpoint(seed), device=device), tm.SP_LR,
+         sp_draws, sp_loss, lambda: tm.train_superpoint(ds, n_valid, steps, batch_sp, seed, sampler=lambda i: sp_draws[i])),
+        ("lightglue", lambda: convert.lightglue_from_numpy(spl.init_lightglue(seed, n_layers=lg_layers), device=device),
+         tm.LG_LR, lg_draws, lg_loss, lambda: tm.train_lightglue(lg_ds, n_valid, steps, batch_lg, seed,
+                                                                 n_layers=lg_layers, sampler=lambda i: lg_draws[i])),
+    ):
+        e1, e2 = eager(make, lr, draws, loss), eager(make, lr, draws, loss)
+        (mod, losses), g_ms = timed(train)
+        graphed = (losses.cpu(), [p.detach().cpu() for p in mod.parameters()])
+        out[name] = dict(graphed_vs_eager=compare(graphed, e1, lr), eager_vs_eager=compare(e2, e1, lr),
+                         eager_ms_per_step=e1[2], steps=steps)
+    return out
+
+
+def graph_failures(cmp, tol=P8_TOL):
+    """Graphed against eager, no farther apart than two eager runs are:
+    every step's loss within `tol` relative; the share of final weights
+    more than 1e-5 apart at most twice the eager runs' share plus 1e-3
+    (SuperPoint's eager runs differ in ~4% of the weights after 12 steps),
+    and every weight within 2 lr x steps."""
+    bad = []
+    for name, c in cmp.items():
+        g, e = c["graphed_vs_eager"], c["eager_vs_eager"]
+        if not (g["loss_rel_err_max"] <= tol and g["weight_share_above_1e5"] <= 2 * e["weight_share_above_1e5"] + 1e-3
+                and g["weight_max_abs_diff"] <= g["two_lr"] * c["steps"]):
+            bad.append(name)
+    return bad
+
+
+class StepClock:
+    """Per-step CUDA events and host syncs of a training loop, through the
+    trainer's injected sampler, which is called at the start of every step:
+    it records one event there (and one more ends the loop), and turns
+    torch's sync debug mode on at step 0, so the module set-up before the
+    loop is not counted."""
+
+    def __init__(self, sampler):
+        self.sampler = sampler
+        self.events = []
+
+    def draw(self, step):
+        import torch
+
+        if step == 0:
+            torch.cuda.set_sync_debug_mode("warn")
+        self._mark()
+        return self.sampler(step)
+
+    def _mark(self):
+        import torch
+
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append(ev)
+
+    def run(self, fn):
+        """(host syncs inside the loop, where each was made, fn's result)."""
+        import warnings
+
+        import torch
+
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out = fn()
+                self._mark()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        where = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
+        return len(where), where, out
+
+    def step_ms(self, warmup=P8_WARMUP):
+        import torch
+
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in zip(self.events[:-1], self.events[1:])]
+        return dict(median_ms=float(np.median(ms[warmup:])), mean_ms=float(np.mean(ms[warmup:])),
+                    first_ms=float(ms[0]), steps=len(ms), loop_s=float(sum(ms)) / 1e3)
+
+
+def phase_train(device, out_dir):
+    """Phase 8 (see the module docstring)."""
+    import torch
+
+    from fastlivo_tpu_torch import convert
+    from fastlivo_tpu_torch.backend import superpoint_lightglue as spl
+    from fastlivo_tpu_torch.backend import train_matcher as tm
+    from fastlivo_tpu_torch.backend import visual_verify as vv
+
+    r = P8_RECIPE
+    batch_lg = max(r["batch"] // 2, 1)
+    out = dict(recipe=r, image=[tm.CAM_H, tm.CAM_W])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    ds, n_valid = tm.build_dataset(r["pairs"], r["seed"], device=device)
+    n_valid = int(n_valid)  # the one host read before training
+    out["dataset_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    sp_clock = StepClock(tm.superpoint_sampler(n_valid, r["batch"], r["seed"] + 1, device))
+    sp_syncs, sp_sync_at, (sp, sp_losses) = sp_clock.run(lambda: tm.train_superpoint(
+        ds, n_valid, r["steps_sp"], r["batch"], r["seed"], sampler=sp_clock.draw))
+    torch.cuda.synchronize()
+    out["superpoint_train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lg_ds = tm.build_lg_dataset(ds, sp)
+    torch.cuda.synchronize()
+    out["lg_dataset_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lg_clock = StepClock(tm.lightglue_sampler(n_valid, batch_lg, r["seed"] + 2, device))
+    lg_syncs, lg_sync_at, (lg, lg_losses) = lg_clock.run(lambda: tm.train_lightglue(
+        lg_ds, n_valid, r["steps_lg"], batch_lg, r["seed"], n_layers=r["lg_layers"], sampler=lg_clock.draw))
+    torch.cuda.synchronize()
+    out["lightglue_train_s"] = time.perf_counter() - t0
+    sp_l, lg_l = sp_losses.cpu().numpy(), lg_losses.cpu().numpy()  # the first reads of the losses
+    t0 = time.perf_counter()
+    rows = tm.evaluate(sp, lg)
+    out["evaluate_s"] = time.perf_counter() - t0
+    sp_path, lg_path = os.path.join(out_dir, "superpoint_synth.npz"), os.path.join(out_dir, "lightglue_synth.npz")
+    tm.save_f16(sp_path, convert.superpoint_state_to_numpy(sp))
+    tm.save_f16(lg_path, convert.lightglue_state_to_numpy(lg))
+    torch.cuda.synchronize()
+    out["launches"] = read_launches()
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+
+    sp_t, lg_t = sp_clock.step_ms(), lg_clock.step_ms()
+    g = tm.G
+    sp_flops = 3 * (2 * r["batch"] * superpoint_flops(tm.CAM_H, tm.CAM_W) + 2 * r["batch"] * 2 * g * g * spl.DESC_DIM)
+    lg_flops = 3 * batch_lg * lightglue_flops(tm.MAX_KP, tm.MAX_KP, r["lg_layers"])
+    out.update(
+        n_valid=n_valid, rendered_pairs=int(ds["img0"].shape[0]),
+        dustbin_share=float((ds["det0"] == 64).float().mean()), gt_share=float((lg_ds["gt"] >= 0).float().mean()),
+        superpoint=dict(**sp_t, syncs_in_loop=sp_syncs, syncs_at=sp_sync_at, flops_per_step=sp_flops,
+                        f32_peak_share=sp_flops / (sp_t["median_ms"] * 1e-3) / F32_PEAK_FLOPS,
+                        bound_ms=sp_flops / F32_PEAK_FLOPS * 1e3,
+                        loss_first5=float(sp_l[:5].mean()), loss_last50=float(sp_l[-50:].mean())),
+        lightglue=dict(**lg_t, syncs_in_loop=lg_syncs, syncs_at=lg_sync_at, flops_per_step=lg_flops,
+                       f32_peak_share=lg_flops / (lg_t["median_ms"] * 1e-3) / F32_PEAK_FLOPS,
+                       bound_ms=lg_flops / F32_PEAK_FLOPS * 1e3,
+                       loss_first5=float(lg_l[:5].mean()), loss_last50=float(lg_l[-50:].mean())),
+        evaluate=[dict(learned=a, learned_matches=b, classical=c, classical_matches=d) for a, b, c, d in rows],
+    )
+    failed = []  # every gate runs; the phase raises at the end with its record printed
+    for name, l in (("superpoint", sp_l), ("lightglue", lg_l)):
+        if not np.all(np.isfinite(l)):
+            failed.append(f"non-finite {name} losses")
+        elif not l[-50:].mean() < l[:5].mean():
+            failed.append(f"{name} loss did not fall: {l[:5].mean()} -> {l[-50:].mean()}")
+    if n_valid <= 0:
+        failed.append("no overlap-valid pair")
+    cpu_ds, _ = tm.build_dataset(16, r["seed"], chunk=32, device="cpu")
+    out["first_chunk_valid_equal_cpu"] = bool(torch.equal(ds["ok"][:32].cpu(), cpu_ds["ok"]))
+    if not out["first_chunk_valid_equal_cpu"]:
+        failed.append(f"first chunk's valid flags {ds['ok'][:32].tolist()} vs CPU {cpu_ds['ok'].tolist()}")
+
+    # The quality gate on the saved f16 artifacts (the committed weights'
+    # criterion), the committed weights beside them.
+    trained = vv.SuperPointLightGlue(weights_path=(sp_path, lg_path), device=device)
+    committed = vv.default_matcher(device=device)
+    classical = vv.OrientedPatchMatcher(device=device)
+    pairs = matcher_gate_pairs(device)
+    ratios = dict(trained=[], committed=[], classical=[])
+    for a, b in pairs:
+        ratios["trained"].append(trained.match(a, b).match_ratio)
+        ratios["committed"].append(committed.match(a, b).match_ratio)
+        ratios["classical"].append(classical.match(a, b).match_ratio)
+    out["gate_ratios"] = ratios
+    wins = all(t > c for t, c in zip(ratios["trained"], ratios["classical"]))
+    margin = float(np.mean(ratios["trained"]) / max(np.mean(ratios["classical"]), 1e-12))
+    out["gate_mean_over_classical"] = margin
+    if not wins or not margin > P8_GATE_MARGIN:
+        failed.append(f"the trained matcher does not beat the classical one: {ratios}")
+
+    # The npz round trip: the loaded artifact matches as the in-memory model
+    # with f16-rounded weights.
+    def f16(mod):
+        with torch.no_grad():
+            for p in mod.parameters():
+                p.copy_(p.half().float())
+        return mod.eval()
+
+    sp16 = f16(convert.superpoint_from_numpy(convert.superpoint_state_to_numpy(sp), device=device))
+    lg16 = f16(convert.lightglue_from_numpy(convert.lightglue_state_to_numpy(lg), device=device))
+    mem = spl.SuperPointLightGlueMatcher(sp16, lg16)
+    same = []
+    for a, b in pairs:
+        ra, rb = trained.match(a, b), mem.match(a, b)
+        same.append(rows_set(np.concatenate([ra.pts1, ra.pts2], 1)) == rows_set(np.concatenate([rb.pts1, rb.pts2], 1)))
+    out["npz_matches_equal_in_memory_f16"] = same
+    if not all(same):
+        failed.append(f"the saved artifact's matches differ from the in-memory f16 model's: {same}")
+
+    out["card_vs_cpu"] = train_step_card_vs_cpu(device, ds, lg_ds, r["batch"], batch_lg, r["seed"], r["lg_layers"])
+    bad = card_vs_cpu_failures(out["card_vs_cpu"])
+    if bad:
+        failed.append(f"card vs CPU steps {bad}")
+    out["graphed_vs_eager"] = graphed_vs_eager(device, ds, lg_ds, n_valid, r["batch"], batch_lg, seed=r["seed"],
+                                               lg_layers=r["lg_layers"])
+    bad = graph_failures(out["graphed_vs_eager"])
+    if bad:
+        failed.append(f"graphed training differs from eager steps: {bad}")
+    if failed:
+        print(json.dumps({"phase8_train": out}, default=str), flush=True)
+        raise AssertionError(f"8: {failed}")
+    return out
+
+
 def main(argv=None):
     import argparse
     import contextlib
@@ -2638,6 +3069,13 @@ def main(argv=None):
     print(json.dumps({"phase7_multi": multi, "gpu": ident}, default=str), flush=True)
     p7_launches = multi["7a"]["launches"]
 
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as train_dir:
+        t0 = time.perf_counter()
+        train = phase_train(device, train_dir)
+        train["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"phase8_train": train, "gpu": ident}, default=str), flush=True)
+    p8_launches = train["launches"]
+
     kernels = []
     for r in k1:
         kernels.append(dict(
@@ -2649,6 +3087,7 @@ def main(argv=None):
             launches_5b=gnss_launches["extract_windows"],
             launches_6a=bag_launches["extract_windows"],
             launches_7=p7_launches["extract_windows"],
+            launches_8=p8_launches["extract_windows"],
             max_abs_err=r["max_abs_err"],
             ms=r["kernel_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
@@ -2674,6 +3113,7 @@ def main(argv=None):
             launches_6a_per_frame=bag["6a"]["patch_sample_per_frame"],
             launches_7=p7_launches["patch_sample"],
             launches_7_per_frame=p7_launches["patch_sample"] / multi["7a"]["frames"],
+            launches_8=p8_launches["patch_sample"],
             max_abs_err=r["max_abs_err"],
             ms=r["kernel_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
@@ -2688,7 +3128,8 @@ def main(argv=None):
         with open(args.out, "w") as f:
             json.dump({"gpu": ident, "kernels": kernels, "livo": livo, "determinism": det, "cli": cli,
                        "phase5a_loop": loop, "phase5b_gnss": gnss, "phase5c_matcher": matcher,
-                       "phase6_bag": bag, "phase7_multi": multi}, f, indent=1, default=str)
+                       "phase6_bag": bag, "phase7_multi": multi, "phase8_train": train}, f, indent=1,
+                      default=str)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,18 +7,23 @@ self/cross attention stack with the matchability and dual-softmax head.
 Convolutions are `F.conv2d` in NCHW ('SAME' is padding 1 for the 3x3
 convolutions, 0 for the 1x1 ones); products are `torch.matmul` with the
 JAX package's (in, out) weight layout. Weights come from the JAX npz
-artifacts (or the JAX package's `init_superpoint`/`init_lightglue` output
-as NumPy) through `convert.superpoint_state_from_numpy` /
-`convert.lightglue_state_from_numpy`.
+artifacts, or from `init_superpoint` / `init_lightglue` here, which draw
+the JAX package's initial weights from the same NumPy generator calls)
+through `convert.superpoint_state_from_numpy` /
+`convert.lightglue_state_from_numpy`; `convert.*_state_to_numpy` writes
+them back under the npz names.
 
-Parameter names are the npz keys with '.' replaced by '_' (`conv1a_w`,
-`l0_self_q_w`, ...); SuperPoint convolution weights are OIHW.
+The weights are trainable parameters (`backend/train_matcher.py` trains
+them); inference runs under `torch.no_grad()`. Parameter names are the npz
+keys with '.' replaced by '_' (`conv1a_w`, `l0_self_q_w`, ...); SuperPoint
+convolution weights are OIHW. `superpoint_logits` and `lightglue_forward`
+take one image or pair, or a batch of them along a leading dimension.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -40,15 +45,27 @@ _CONVS = [
 ]
 
 
+def init_superpoint(seed: int = 0) -> Dict[str, np.ndarray]:
+    """Random SuperPoint weights under the npz names (HWIO kernels, zero
+    biases): the JAX package's `init_superpoint` draws, bit for bit."""
+    rng = np.random.default_rng(seed)
+    w = {}
+    for name, cin, cout, k in _CONVS:
+        scale = float(np.sqrt(2.0 / (k * k * cin)))
+        w[f"{name}.w"] = rng.normal(0, scale, (k, k, cin, cout)).astype(np.float32)
+        w[f"{name}.b"] = np.zeros((cout,), np.float32)
+    return w
+
+
 class SuperPoint(nn.Module):
-    """The SuperPoint encoder and heads; weights are buffers (inference)."""
+    """The SuperPoint encoder and heads; weights are parameters."""
 
     def __init__(self):
         super().__init__()
         self.ksize = {}
         for name, cin, cout, k in _CONVS:
-            self.register_buffer(f"{name}_w", torch.zeros((cout, cin, k, k)))
-            self.register_buffer(f"{name}_b", torch.zeros((cout,)))
+            self.register_parameter(f"{name}_w", nn.Parameter(torch.zeros((cout, cin, k, k))))
+            self.register_parameter(f"{name}_b", nn.Parameter(torch.zeros((cout,))))
             self.ksize[name] = k
 
     def conv(self, name: str, x: torch.Tensor, relu: bool = True) -> torch.Tensor:
@@ -61,10 +78,11 @@ class SuperPoint(nn.Module):
 
 
 def superpoint_logits(sp: SuperPoint, img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """img (H, W) in [0, 1] -> (detector logits (H/8, W/8, 65), dense
-    descriptors (H/8, W/8, 256) L2-normalized), channels last as in JAX."""
+    """img (H, W) or (B, H, W) in [0, 1] -> (detector logits (..., H/8,
+    W/8, 65), dense descriptors (..., H/8, W/8, 256) L2-normalized),
+    channels last as in JAX. A batch is one NCHW convolution per layer."""
     c = sp.conv
-    x = img[None, None]
+    x = img.reshape(-1, 1, *img.shape[-2:])
     x = c("conv1b", c("conv1a", x))
     x = F.max_pool2d(x, 2, 2)
     x = c("conv2b", c("conv2a", x))
@@ -72,8 +90,10 @@ def superpoint_logits(sp: SuperPoint, img: torch.Tensor) -> Tuple[torch.Tensor, 
     x = c("conv3b", c("conv3a", x))
     x = F.max_pool2d(x, 2, 2)
     x = c("conv4b", c("conv4a", x))
-    logits = c("convPb", c("convPa", x), relu=False)[0].permute(1, 2, 0)
-    d = c("convDb", c("convDa", x), relu=False)[0].permute(1, 2, 0)
+    logits = c("convPb", c("convPa", x), relu=False).permute(0, 2, 3, 1)
+    d = c("convDb", c("convDa", x), relu=False).permute(0, 2, 3, 1)
+    if img.dim() == 2:
+        logits, d = logits[0], d[0]
     d = d * torch.rsqrt(torch.sum(d * d, dim=-1, keepdim=True) + 1e-12)
     return logits, d
 
@@ -141,59 +161,79 @@ def extract_keypoints(
 # --------------------------------------------------------------------------
 
 
+def lightglue_keys(n_layers: int = N_LAYERS, dim: int = DESC_DIM) -> List[Tuple[str, Tuple[int, ...]]]:
+    """(npz name, shape) of every LightGlue weight, in `init_lightglue`'s
+    draw order. The converters name parameters from this table."""
+    hd = dim // N_HEADS
+    keys = [("kenc.w", (2, hd // 2))]
+    for i in range(n_layers):
+        for kind in ("self", "cross"):
+            p = f"l{i}.{kind}"
+            for nm in ("q", "k", "v", "o"):
+                keys += [(f"{p}.{nm}.w", (dim, dim)), (f"{p}.{nm}.b", (dim,))]
+            keys += [(f"{p}.mlp0.w", (2 * dim, 2 * dim)), (f"{p}.mlp0.b", (2 * dim,)),
+                     (f"{p}.mlp1.w", (2 * dim, dim)), (f"{p}.mlp1.b", (dim,))]
+    keys += [("matchability.w", (dim, 1)), ("matchability.b", (1,)),
+             ("final_proj.w", (dim, dim)), ("final_proj.b", (dim,))]
+    return keys
+
+
+def init_lightglue(seed: int = 0, n_layers: int = N_LAYERS, dim: int = DESC_DIM) -> Dict[str, np.ndarray]:
+    """Random LightGlue weights under the npz names ((in, out) matrices
+    drawn N(0, 1/in), zero biases) plus the `n_layers` entry: the JAX
+    package's `init_lightglue` draws, bit for bit."""
+    rng = np.random.default_rng(seed)
+    w = {}
+    for name, shape in lightglue_keys(n_layers, dim):
+        if name.endswith(".w"):
+            w[name] = rng.normal(0, 1.0 / np.sqrt(shape[0]), shape).astype(np.float32)
+        else:
+            w[name] = np.zeros(shape, np.float32)
+        if name == "kenc.w":
+            w["n_layers"] = np.asarray(n_layers, np.int32)
+    return w
+
+
 class LightGlue(nn.Module):
-    """The LightGlue stack; weights are buffers in the (in, out) layout."""
+    """The LightGlue stack; weights are parameters in the (in, out) layout."""
 
     def __init__(self, n_layers: int = N_LAYERS, dim: int = DESC_DIM):
         super().__init__()
         self.n_layers = n_layers
-        head_dim = dim // N_HEADS
-        self.register_buffer("kenc_w", torch.zeros((2, head_dim // 2)))
-        for i in range(n_layers):
-            for kind in ("self", "cross"):
-                p = f"l{i}_{kind}"
-                for nm in ("q", "k", "v", "o"):
-                    self.register_buffer(f"{p}_{nm}_w", torch.zeros((dim, dim)))
-                    self.register_buffer(f"{p}_{nm}_b", torch.zeros((dim,)))
-                self.register_buffer(f"{p}_mlp0_w", torch.zeros((2 * dim, 2 * dim)))
-                self.register_buffer(f"{p}_mlp0_b", torch.zeros((2 * dim,)))
-                self.register_buffer(f"{p}_mlp1_w", torch.zeros((2 * dim, dim)))
-                self.register_buffer(f"{p}_mlp1_b", torch.zeros((dim,)))
-        self.register_buffer("matchability_w", torch.zeros((dim, 1)))
-        self.register_buffer("matchability_b", torch.zeros((1,)))
-        self.register_buffer("final_proj_w", torch.zeros((dim, dim)))
-        self.register_buffer("final_proj_b", torch.zeros((dim,)))
+        for name, shape in lightglue_keys(n_layers, dim):
+            self.register_parameter(name.replace(".", "_"), nn.Parameter(torch.zeros(shape)))
 
     def block(self, prefix: str) -> Dict[str, torch.Tensor]:
         n = len(prefix) + 1
-        return {k[n:]: v for k, v in self.named_buffers() if k.startswith(prefix + "_")}
+        return {k[n:]: v for k, v in self.named_parameters() if k.startswith(prefix + "_")}
 
     def forward(self, kpts0, desc0, valid0, kpts1, desc1, valid1, size_wh):
         return lightglue_forward(self, kpts0, desc0, valid0, kpts1, desc1, valid1, size_wh)
 
 
 def _rotary(kpts: torch.Tensor, wenc: torch.Tensor, size_wh: torch.Tensor) -> torch.Tensor:
-    """Rotary frequencies from normalized keypoint coords: (N, hd/2)."""
+    """Rotary frequencies from normalized keypoint coords: (..., N, hd/2)."""
     p = (kpts - size_wh / 2.0) / size_wh.max()
     return p @ wenc
 
 
 def _apply_rot(x: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
-    """x (N, H, hd) rotated on its interleaved pairs by theta (N, hd/2)."""
-    c, s = torch.cos(theta), torch.sin(theta)
+    """x (..., N, H, hd) rotated on its interleaved pairs by theta
+    (..., N, hd/2)."""
+    c, s = torch.cos(theta)[..., None, :], torch.sin(theta)[..., None, :]
     x1, x2 = x[..., 0::2], x[..., 1::2]
-    y1 = x1 * c[:, None, :] - x2 * s[:, None, :]
-    y2 = x1 * s[:, None, :] + x2 * c[:, None, :]
+    y1 = x1 * c - x2 * s
+    y2 = x1 * s + x2 * c
     return torch.stack([y1, y2], dim=-1).reshape(x.shape)
 
 
 def _attention(wp, x_q, x_kv, mask_q, mask_kv, theta_q=None, theta_kv=None):
-    """Multi-head attention block with LightGlue's message-MLP update."""
-    n, d = x_q.shape
-    hd = d // N_HEADS
+    """Multi-head attention block with LightGlue's message-MLP update;
+    x (..., N, d), masks (..., N)."""
+    hd = x_q.shape[-1] // N_HEADS
 
     def split(t):
-        return t.reshape(-1, N_HEADS, hd)
+        return t.reshape(*t.shape[:-1], N_HEADS, hd)
 
     q = split(x_q @ wp["q_w"] + wp["q_b"])
     k = split(x_kv @ wp["k_w"] + wp["k_b"])
@@ -201,19 +241,22 @@ def _attention(wp, x_q, x_kv, mask_q, mask_kv, theta_q=None, theta_kv=None):
     if theta_q is not None:
         q = _apply_rot(q, theta_q)
         k = _apply_rot(k, theta_kv)
-    att = torch.einsum("nhd,mhd->hnm", q, k) / math.sqrt(hd)
-    att = torch.where(mask_kv[None, None, :], att, -1e9)
+    att = torch.einsum("...nhd,...mhd->...hnm", q, k) / math.sqrt(hd)
+    att = torch.where(mask_kv[..., None, None, :], att, -1e9)
     att = torch.softmax(att, dim=-1)
-    msg = torch.einsum("hnm,mhd->nhd", att, v).reshape(n, d)
+    msg = torch.einsum("...hnm,...mhd->...nhd", att, v).reshape(x_q.shape)
     msg = msg @ wp["o_w"] + wp["o_b"]
     y = torch.cat([x_q, msg], dim=-1)
     y = F.gelu(y @ wp["mlp0_w"] + wp["mlp0_b"], approximate="tanh")
     y = y @ wp["mlp1_w"] + wp["mlp1_b"]
-    return torch.where(mask_q[:, None], x_q + y, x_q)
+    return torch.where(mask_q[..., None], x_q + y, x_q)
 
 
 def lightglue_forward(lg: LightGlue, kpts0, desc0, valid0, kpts1, desc1, valid1, size_wh):
-    """Returns the (N0, N1) soft assignment P and the matchabilities."""
+    """Returns the (..., N0, N1) soft assignment P and the matchabilities
+    (..., N0), (..., N1). Keypoints (..., N, 2), descriptors (..., N, d),
+    masks (..., N): one pair, or a batch of pairs along a leading
+    dimension (each pair's softmaxes see only its own keypoints)."""
     size_wh = torch.as_tensor(size_wh, dtype=torch.float32, device=desc0.device)
     th0 = _rotary(kpts0, lg.kenc_w, size_wh)
     th1 = _rotary(kpts1, lg.kenc_w, size_wh)
@@ -227,14 +270,14 @@ def lightglue_forward(lg: LightGlue, kpts0, desc0, valid0, kpts1, desc1, valid1,
         x1n = _attention(wc, x1, x0, valid1, valid0)
         x0, x1 = x0n, x1n
 
-    m0 = torch.sigmoid((x0 @ lg.matchability_w + lg.matchability_b)[:, 0])
-    m1 = torch.sigmoid((x1 @ lg.matchability_w + lg.matchability_b)[:, 0])
+    m0 = torch.sigmoid((x0 @ lg.matchability_w + lg.matchability_b)[..., 0])
+    m1 = torch.sigmoid((x1 @ lg.matchability_w + lg.matchability_b)[..., 0])
     p0 = x0 @ lg.final_proj_w + lg.final_proj_b
     p1 = x1 @ lg.final_proj_w + lg.final_proj_b
-    sim = (p0 @ p1.T) / math.sqrt(p0.shape[-1])
-    sim = torch.where(valid0[:, None] & valid1[None, :], sim, -1e9)
+    sim = (p0 @ p1.transpose(-1, -2)) / math.sqrt(p0.shape[-1])
+    sim = torch.where(valid0[..., :, None] & valid1[..., None, :], sim, -1e9)
     # Dual-softmax assignment weighted by matchability (LightGlue eq. 8).
-    p = torch.softmax(sim, dim=1) * torch.softmax(sim, dim=0) * (m0[:, None] * m1[None, :])
+    p = torch.softmax(sim, dim=-1) * torch.softmax(sim, dim=-2) * (m0[..., :, None] * m1[..., None, :])
     return p, m0, m1
 
 

@@ -177,12 +177,9 @@ class SuperPointLightGlue:
 
         sp_path, lg_path = weights_path
         dev = _device.resolve(device)
-        sp = spl.SuperPoint()
-        sp.load_state_dict(convert.superpoint_state_from_numpy(spl.load_npz(sp_path)))
-        lg_state, depth = convert.lightglue_state_from_numpy(spl.load_npz(lg_path), n_layers)
-        lg = spl.LightGlue(n_layers=depth)
-        lg.load_state_dict(lg_state)
-        self._impl = spl.SuperPointLightGlueMatcher(sp.to(dev).eval(), lg.to(dev).eval(), **kw)
+        sp = convert.superpoint_from_numpy(spl.load_npz(sp_path), device=dev)
+        lg = convert.lightglue_from_numpy(spl.load_npz(lg_path), n_layers, device=dev)
+        self._impl = spl.SuperPointLightGlueMatcher(sp.eval(), lg.eval(), **kw)
 
     def match(self, img1: np.ndarray, img2: np.ndarray) -> MatchResult:
         return self._impl.match(img1, img2)

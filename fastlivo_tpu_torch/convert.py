@@ -5,9 +5,11 @@ package's state: `{k: np.asarray(v) for k, v in state._asdict().items()}`).
 Dtypes and shapes are kept exactly, including the packed `meta` rows and
 the symmetric-6 `surf_s2` of the voxel map.
 
-The matcher's weights (the committed npz artifacts, or the JAX package's
-`init_superpoint` / `init_lightglue` output as NumPy) become the state of
-the port's SuperPoint and LightGlue modules.
+The matcher's weights (the committed npz artifacts, or `init_superpoint` /
+`init_lightglue` output, the port's or the JAX package's) become the state
+of the port's SuperPoint and LightGlue modules, and trained modules go back
+to the npz names and layouts (`*_state_to_numpy`), so the JAX package
+loads what the port trains.
 
 Sharded arenas: the JAX package holds a map-sharded arena as one global
 array per field (capacity x W rows, shard-major); each port rank holds one
@@ -165,3 +167,57 @@ def lightglue_state_from_numpy(d: Dict[str, np.ndarray], n_layers: int | None = 
             continue
         out[k.replace(".", "_")] = _f32(v)
     return out, n_layers
+
+
+def superpoint_from_numpy(d: Dict[str, np.ndarray], device=None):
+    """A `SuperPoint` module on `device` (None: the GPU) holding `d`."""
+    from fastlivo_tpu_torch.backend import superpoint_lightglue as spl
+
+    sp = spl.SuperPoint()
+    sp.load_state_dict(superpoint_state_from_numpy(d))
+    return sp.to(_device.resolve(device))
+
+
+def lightglue_from_numpy(d: Dict[str, np.ndarray], n_layers: int | None = None, device=None):
+    """A `LightGlue` module on `device` (None: the GPU) holding `d`, at the
+    depth `lightglue_state_from_numpy` gives."""
+    from fastlivo_tpu_torch.backend import superpoint_lightglue as spl
+
+    state, depth = lightglue_state_from_numpy(d, n_layers)
+    lg = spl.LightGlue(n_layers=depth)
+    lg.load_state_dict(state)
+    return lg.to(_device.resolve(device))
+
+
+def _np32(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def superpoint_state_to_numpy(sp) -> Dict[str, np.ndarray]:
+    """The inverse of `superpoint_state_from_numpy`: a SuperPoint module's
+    weights as f32 NumPy under the npz names, kernels back to HWIO."""
+    from fastlivo_tpu_torch.backend import superpoint_lightglue as spl
+
+    state = sp.state_dict()
+    out = {}
+    for name, _, _, _ in spl._CONVS:
+        out[f"{name}.w"] = np.ascontiguousarray(_np32(state[f"{name}_w"]).transpose(2, 3, 1, 0))
+        out[f"{name}.b"] = _np32(state[f"{name}_b"])
+    return out
+
+
+def lightglue_state_to_numpy(lg) -> Dict[str, np.ndarray]:
+    """The inverse of `lightglue_state_from_numpy`: a LightGlue module's
+    weights as f32 NumPy under the npz names (from `lightglue_keys`, never
+    by rewriting '_'), with the int32 `n_layers` entry after `kenc.w` as
+    `init_lightglue` places it."""
+    from fastlivo_tpu_torch.backend import superpoint_lightglue as spl
+
+    state = lg.state_dict()
+    dim = state["final_proj_w"].shape[0]
+    out = {}
+    for name, _ in spl.lightglue_keys(lg.n_layers, dim):
+        out[name] = _np32(state[name.replace(".", "_")])
+        if name == "kenc.w":
+            out["n_layers"] = np.asarray(lg.n_layers, np.int32)
+    return out

@@ -71,6 +71,13 @@ def default_trajectory(
     return Trajectory(pos_fn=pos, yaw_fn=lambda t: yaw_rate * warp(t))
 
 
+def make_world(rng: np.random.Generator, n: int = 60000, half: float = 10.0) -> np.ndarray:
+    """Reference points on the room's surfaces and six random boxes (the
+    scans ray-sample the analytic surfaces; this is for map bootstrap and
+    debugging)."""
+    return _sample_surfaces(rng, n, half, _default_boxes(rng, half))
+
+
 def _default_boxes(rng: np.random.Generator, half: float) -> List[Tuple[np.ndarray, np.ndarray]]:
     boxes = []
     for _ in range(6):

@@ -689,6 +689,32 @@ def _plane_from_win(m: VoxelHashMap, win: _StencilWin, planarity_max: float) -> 
     )
 
 
+def surfel_plane(
+    m: VoxelHashMap,
+    slot: torch.Tensor,
+    has: torch.Tensor,
+    cfg: VoxelMapConfig,
+    planarity_max: float = 0.01,
+) -> SurfelResult:
+    """Plane parameters from a voxel slot's running moments (the compat
+    entry: gathers the slot's packed meta row; the lookups call
+    _plane_from_win with the moments at hand)."""
+    dtype = m.meta.dtype
+    row = m._meta_slot[slot.long()]
+    cnt = torch.clamp(row[:, 4], min=1.0)
+    mean_l = row[:, 5:8] / cnt[:, None]
+    mean = mean_l + row[:, 0:3] * cfg.resolution
+    win = _StencilWin(
+        d2=torch.zeros_like(cnt),
+        slot=slot,
+        has=has,
+        n=row[:, 4] * has.to(dtype),
+        mean=mean,
+        mean_l=mean_l,
+    )
+    return _plane_from_win(m, win, planarity_max)
+
+
 def surfel_lookup(
     m: VoxelHashMap,
     queries: torch.Tensor,

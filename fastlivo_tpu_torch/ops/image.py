@@ -1,7 +1,8 @@
 """Image operations (port of fastlivo_tpu/ops/image.py): the window-based
 samplers, the pyramid and the dense Shi-Tomasi map of the photometric VIO
-path, and `bilinear`, `extract_patches` and `shi_tomasi_at` for the
-classical loop-gate matchers.
+path, `bilinear`, `extract_patches` and `shi_tomasi_at` for the classical
+loop-gate matchers, and the JAX package's compat entries
+`patch_residual_grad` and `shi_tomasi` (sparse, per center).
 
 Convention: images are (H, W) float32; pixel coords are (u, v) = (col,
 row); all samplers take flat (..., 2) pixel arrays.
@@ -70,6 +71,22 @@ def extract_patches(img: torch.Tensor, centers: torch.Tensor, patch_size: int, s
     getpatch lattice (every texel shares the center's subpixel fraction)."""
     uv, _ = _patch_uv(img, centers, patch_size, scale)
     return bilinear(img, uv)
+
+
+def patch_residual_grad(
+    img: torch.Tensor, centers: torch.Tensor, patch_size: int, scale
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Intensity and central-difference gradients on the getpatch lattice:
+    (intensity (N, K), du (N, K), dv (N, K)), K = patch_size^2, gradients
+    in full-resolution pixel units (divided by the scale)."""
+    uv, s = _patch_uv(img, centers, patch_size, scale)
+    val = bilinear(img, uv)
+    zero = torch.zeros_like(s)
+    off_u = torch.cat([s, zero], dim=-1)[:, None, :]
+    off_v = torch.cat([zero, s], dim=-1)[:, None, :]
+    du = 0.5 * (bilinear(img, uv + off_u) - bilinear(img, uv - off_u)) / s
+    dv = 0.5 * (bilinear(img, uv + off_v) - bilinear(img, uv - off_v)) / s
+    return val, du, dv
 
 
 def pad_image(img: torch.Tensor, pad: int) -> torch.Tensor:
@@ -187,3 +204,23 @@ def shi_tomasi_at(img: torch.Tensor, centers: torch.Tensor, halfbox: int = 4) ->
     u = torch.clamp(torch.floor(centers[:, 0]).to(torch.int32), 0, w - 1).long()
     v = torch.clamp(torch.floor(centers[:, 1]).to(torch.int32), 0, h - 1).long()
     return dense[v, u]
+
+
+def shi_tomasi(img: torch.Tensor, centers: torch.Tensor, halfbox: int = 4) -> torch.Tensor:
+    """Shi-Tomasi score (smaller eigenvalue of the gradient Gram / (2 area))
+    at (N, 2) centers: bilinear central differences over the (2 halfbox)^2
+    box from floor(center) - halfbox."""
+    box = 2 * halfbox
+    r = torch.arange(box, dtype=img.dtype, device=img.device) - halfbox
+    yy, xx = torch.meshgrid(r, r, indexing="ij")
+    grid = torch.stack([xx.reshape(-1), yy.reshape(-1)], dim=-1)  # (B, 2)
+    uv = torch.floor(centers)[:, None, :] + grid[None, :, :]
+    off_u = torch.tensor([1.0, 0.0], dtype=img.dtype, device=img.device)
+    off_v = torch.tensor([0.0, 1.0], dtype=img.dtype, device=img.device)
+    dx = 0.5 * (bilinear(img, uv + off_u) - bilinear(img, uv - off_u))
+    dy = 0.5 * (bilinear(img, uv + off_v) - bilinear(img, uv - off_v))
+    dxx = torch.sum(dx * dx, dim=-1)
+    dyy = torch.sum(dy * dy, dim=-1)
+    dxy = torch.sum(dx * dy, dim=-1)
+    area = box * box
+    return 0.5 * (dxx + dyy - torch.sqrt((dxx - dyy) ** 2 + 4.0 * dxy**2)) / area

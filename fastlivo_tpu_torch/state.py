@@ -71,3 +71,8 @@ def boxminus(a: NavState, b: NavState) -> torch.Tensor:
         ]
     )
 
+
+def flatten_nominal(state: NavState) -> torch.Tensor:
+    """The nominal state as a (9 + 3 * 5,) vector (rot as the flattened 3x3)
+    for logging and checkpoints."""
+    return torch.cat([state.rot.reshape(-1), state.pos, state.vel, state.bg, state.ba, state.grav])

@@ -155,3 +155,35 @@ def test_align_trajectory_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(r_gpu, r_cpu, atol=1e-5)
     np.testing.assert_allclose(l_gpu, l_cpu, atol=1e-4)
     np.testing.assert_allclose(l_cpu, lever, atol=0.05)
+
+
+@pytest.mark.cuda
+def test_training_steps_card_match_cpu(cuda_device):
+    """One SuperPoint step (batch 8) and one LightGlue step (3 layers,
+    batch 4) on the card against the CPU port from the same init weights
+    and batch, to phase 8's tolerance (`chip_smoke.card_vs_cpu_failures`):
+    losses within rtol 1e-4; in float32 the gradients together within 1e-4
+    relative L2; in float64 every gradient tensor within 1e-4."""
+    from fastlivo_tpu_torch import convert
+    from fastlivo_tpu_torch.backend import superpoint_lightglue as spl
+    from fastlivo_tpu_torch.backend import train_matcher as tm
+
+    ds, _ = tm.build_dataset(4, 0, chunk=8, device="cpu")
+    lg_ds = tm.build_lg_dataset(ds, convert.superpoint_from_numpy(spl.init_superpoint(0), device="cpu"))
+    cmp = chip_smoke.train_step_card_vs_cpu(cuda_device, ds, lg_ds, 8, 4)
+    assert not chip_smoke.card_vs_cpu_failures(cmp), cmp
+
+
+@pytest.mark.cuda
+def test_graphed_training_equals_eager(cuda_device):
+    """`train_matcher.fit` replays a CUDA graph after its eager warm-up: 12
+    steps of each network against the same steps run eagerly, to phase 8's
+    tolerance (`chip_smoke.graph_failures`)."""
+    from fastlivo_tpu_torch import convert
+    from fastlivo_tpu_torch.backend import superpoint_lightglue as spl
+    from fastlivo_tpu_torch.backend import train_matcher as tm
+
+    ds, n_valid = tm.build_dataset(4, 0, chunk=8, device=cuda_device)
+    lg_ds = tm.build_lg_dataset(ds, convert.superpoint_from_numpy(spl.init_superpoint(0), device=cuda_device))
+    cmp = chip_smoke.graphed_vs_eager(cuda_device, ds, lg_ds, int(n_valid), 8, 4)
+    assert not chip_smoke.graph_failures(cmp), cmp

@@ -11,6 +11,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -58,7 +59,7 @@ def test_every_module_is_walked():
                 "backend.loop_manager", "backend.superpoint_lightglue", "backend.visual_verify",
                 "io.rosbag", "io.lz4f", "io.preprocess", "io.features", "native", "ops.frustum",
                 "parallel", "parallel.axis", "parallel.sharded", "parallel.distributed",
-                "parallel.dryrun"):
+                "parallel.dryrun", "backend.train_matcher", "backend.optim"):
         assert f"fastlivo_tpu_torch.{mod}" in names
 
 
@@ -106,6 +107,35 @@ def test_back_end_needs_a_gpu_unless_told(name):
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+
+
+@pytest.mark.parametrize("name", ["train_matcher.main", "superpoint_from_numpy", "lightglue_from_numpy",
+                                  "build_dataset", "adversarial_pair"])
+def test_training_entry_points_need_a_gpu_unless_told(name):
+    """The training path follows the device rule: `python -m
+    fastlivo_tpu_torch.backend.train_matcher` without `--device cpu`, the
+    converters that make modules from `init_*` weights (NumPy, device-free)
+    and the dataset and evaluation renderers mean CUDA and raise without a
+    GPU; `device="cpu"` runs."""
+    from fastlivo_tpu_torch import convert
+    from fastlivo_tpu_torch.backend import superpoint_lightglue as spl
+    from fastlivo_tpu_torch.backend import train_matcher as tm
+
+    sp_np, lg_np = spl.init_superpoint(0), spl.init_lightglue(0, n_layers=1)
+    assert all(isinstance(v, np.ndarray) for v in (*sp_np.values(), *lg_np.values()))
+    make = {
+        "train_matcher.main": lambda **kw: tm.main(["--no-save", "--pairs", "1"] + (
+            ["--device", kw["device"]] if kw else [])),
+        "superpoint_from_numpy": lambda **kw: convert.superpoint_from_numpy(sp_np, **kw),
+        "lightglue_from_numpy": lambda **kw: convert.lightglue_from_numpy(lg_np, **kw),
+        "build_dataset": lambda **kw: tm.build_dataset(1, 0, chunk=2, **kw),
+        "adversarial_pair": lambda **kw: tm.adversarial_pair(**kw),
+    }[name]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    if name != "train_matcher.main":  # its CPU run is tests/test_torch_train_matcher.py's
+        make(device="cpu")
 
 
 @pytest.mark.parametrize(
