@@ -13,7 +13,11 @@ result line without a CUDA device):
    of the TPU kernel; the fused `patch_sample` at every main-path form
    (select, update on each level, the level-batched stored patches) on a
    rendered frame's padded pyramid, with clamped, out-of-set and
-   non-finite inputs among the candidates.
+   non-finite inputs among the candidates: N = 1, 208 and 4096 on a
+   640x512 frame and N = 832 (the 32x26 grid) on a 1280x1024 frame of
+   configs/mars_lvig_gnss.yaml's camera. Each call must be one launch.
+   Then the wrapper's host cost split by stage at N = 208
+   (time.perf_counter_ns per stage of `ops/patch_sample._launch`).
 2. LIVO: bootstrap_map, then lio_scan_step (surfel) + vio_scan_step pairs
    at the flagship sizes (81,920 raw points, 65,536 budget, 2^18 arena,
    640x512 camera) on a periodic circular room trajectory with matching
@@ -442,19 +446,22 @@ def phase_kernels(device):
 # level 0 without gradients, each update iteration one level with
 # gradients, maintain the stored 12x12 patches of all levels in one launch.
 PS_PAD = 32
-PS_NS = [1, 208, 4096]
+PS_NS = [1, 208, 4096]  # on the flagship 640x512 frame
+PS_WIDE_N = 832  # one candidate per 40-px cell of a 1280x1024 frame (32 x 26)
 PS_STRIDES = (1, 2, 4)
+PS_SPLIT_N = 208
+PS_SPLIT_ITERS = 2000
 
 
-def patch_sample_frame(device):
-    """A rendered room frame of the flagship camera and its padded pyramid
-    (704x576, 384x320, 224x192)."""
+def patch_sample_frame(device, cam=None):
+    """A rendered room frame and its padded pyramid: the flagship camera
+    (704x576, 384x320, 224x192) unless `cam` is given."""
     import torch
 
     from fastlivo_tpu_torch.io import render
     from fastlivo_tpu_torch.models import vio
 
-    cam = flagship_config().cam
+    cam = cam or flagship_config().cam
     rcw, pcw = Scene.frame_pose(1)
     img = render.render_room(
         cam, torch.as_tensor(rcw).to(device), torch.as_tensor(pcw).to(device),
@@ -475,7 +482,7 @@ def patch_sample_centers(rng, n, cam):
     c = rng.uniform([0.0, 0.0], [w, h], size=(n, 2))
     s = rng.choice(PS_STRIDES, n)
     k = min(n, len(edge))
-    c[:k] = edge[:k]
+    c[:k] = np.reshape(edge[:k], (k, 2))
     s[1:6:4] = 3  # not in PS_STRIDES: the lattice of PS_STRIDES[0]
     return c.astype(np.float32), s.astype(np.int32)
 
@@ -494,7 +501,7 @@ def patch_sample_cases(pyr, cam, n, seed=0):
     strides = torch.as_tensor(s_np).to(dev)
     cases = [dict(
         name="select", levels=pyr[:1], centers=[px], strides=strides, patch=8,
-        stride_set=PS_STRIDES, grads=False,
+        stride_set=PS_STRIDES, grads=False, grad_units=None,
         kernel=lambda: ps.patch_sample(pyr[0], px, strides, 8, PS_PAD),
         plain=lambda: ps.patch_sample_plain(pyr[0], px, strides, 8, PS_PAD),
     )]
@@ -504,7 +511,7 @@ def patch_sample_cases(pyr, cam, n, seed=0):
         img = pyr[lvl]
         cases.append(dict(
             name=f"update_L{lvl}", levels=[img], centers=[c], strides=strides, patch=8,
-            stride_set=PS_STRIDES, grads=True,
+            stride_set=PS_STRIDES, grads=True, grad_units=gu,
             kernel=lambda img=img, c=c, gu=gu: ps.patch_sample(
                 img, c, strides, 8, PS_PAD, grad_units=gu),
             plain=lambda img=img, c=c, gu=gu: ps.patch_sample_plain(
@@ -512,7 +519,7 @@ def patch_sample_cases(pyr, cam, n, seed=0):
         ))
     cases.append(dict(
         name="stored", levels=pyr, centers=[px / (1 << lvl) for lvl in range(len(pyr))],
-        strides=None, patch=12, stride_set=(1,), grads=False,
+        strides=None, patch=12, stride_set=(1,), grads=False, grad_units=None,
         kernel=lambda: ps.patch_sample_levels(pyr, px, 12, PS_PAD),
         plain=lambda: ps.patch_sample_levels_plain(pyr, px, 12, PS_PAD),
     ))
@@ -602,18 +609,62 @@ def same_bits(a, b):
     )
 
 
-def phase_patch_sample(device):
-    """`patch_sample` against its plain version on the card at every
-    main-path form and N (bitwise, NaN positions included, one launch per
-    call), then timed beside its plain version and the grid_sample
-    yardstick."""
+def host_ns(fn, iters=PS_SPLIT_ITERS, warmup=100):
+    """Host ns per call of `fn` in a loop (time.perf_counter_ns)."""
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter_ns()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter_ns() - t0) / iters
+
+
+def patch_sample_host_split(case):
+    """The CUDA wrapper's host cost by stage of `ops/patch_sample._launch`,
+    each stage timed alone in a loop (ns per call): the checks, the output
+    buffer, the C arguments, the stream query, the ctypes call with its
+    launch; then the whole wrapper call and an empty lambda (the loop's own
+    cost, inside every number)."""
     import torch
 
     from fastlivo_tpu_torch.ops import patch_sample as ps
 
+    levels, centers, strides = case["levels"], case["centers"][0], case["strides"]
+    patch, sset, gu = case["patch"], case["stride_set"], case["grad_units"]
+    n = centers.shape[0]
+    params = ps._validate(levels, centers, strides, patch, sset, gu, PS_PAD)
+    out, _ = ps._outputs(centers, n, len(levels), patch, gu is not None)
+    args = ps._arguments(levels, centers, strides, gu, n, params, out)
+    fn, stream = ps._kernel_fn(), ps._stream(centers)
+    stages = dict(
+        checks=lambda: ps._validate(levels, centers, strides, patch, sset, gu, PS_PAD),
+        outputs=lambda: ps._outputs(centers, n, len(levels), patch, gu is not None),
+        arguments=lambda: ps._arguments(levels, centers, strides, gu, n, params, out),
+        stream=lambda: ps._stream(centers),
+        ctypes_launch=lambda: fn(*args, stream),
+        call=case["kernel"],
+        loop=lambda: None,
+    )
+    split = {name: host_ns(f) for name, f in stages.items()}
+    torch.cuda.synchronize()
+    return split
+
+
+def phase_patch_sample(device):
+    """`patch_sample` against its plain version on the card at every
+    main-path form and N (bitwise, NaN positions included, one launch per
+    call), then timed beside its plain version and the grid_sample
+    yardstick; the wrapper's host split at N = PS_SPLIT_N."""
+    import torch
+
+    from fastlivo_tpu_torch.ops import patch_sample as ps
+    from fastlivo_tpu_torch.ops.camera import Pinhole
+
     cam, pyr = patch_sample_frame(device)
-    rows = []
-    for n in PS_NS:
+    wide_cam, wide_pyr = patch_sample_frame(device, Pinhole(*GNSS_CAMERA))
+    rows, split = [], {}
+    runs = [(cam, pyr, n) for n in PS_NS] + [(wide_cam, wide_pyr, PS_WIDE_N)]
+    for cam, pyr, n in runs:
         for case in patch_sample_cases(pyr, cam, n):
             before = ps.LAUNCHES["patch_sample"]
             got = case["kernel"]()
@@ -635,7 +686,9 @@ def phase_patch_sample(device):
                 row[f"{name}_eager_ms"] = eager_time_ms(fn)
             row["bound_ms"] = patch_sample_bound_bytes(case) / HBM_BYTES_PER_S * 1e3
             rows.append(row)
-    return rows
+            if n == PS_SPLIT_N:
+                split[case["name"]] = patch_sample_host_split(case)
+    return rows, split
 
 
 def reset_launches():
@@ -3023,7 +3076,8 @@ def main(argv=None):
                       "native_library": os.path.basename(host_lib._name)}), flush=True)
 
     k1 = phase_kernels(device)
-    psr = phase_patch_sample(device)
+    psr, ps_split = phase_patch_sample(device)
+    print(json.dumps({"patch_sample_host_ns": ps_split, "n": PS_SPLIT_N, "gpu": ident}), flush=True)
 
     livo = phase_livo(device)
     print(json.dumps({"livo": livo, "gpu": ident}), flush=True)
@@ -3126,7 +3180,7 @@ def main(argv=None):
         ))
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"gpu": ident, "kernels": kernels, "livo": livo, "determinism": det, "cli": cli,
+            json.dump({"gpu": ident, "kernels": kernels, "patch_sample_host_ns": ps_split, "livo": livo, "determinism": det, "cli": cli,
                        "phase5a_loop": loop, "phase5b_gnss": gnss, "phase5c_matcher": matcher,
                        "phase6_bag": bag, "phase7_multi": multi, "phase8_train": train}, f, indent=1,
                       default=str)

@@ -92,6 +92,92 @@ def test_patch_sample_levels_equal_per_level_launches(cuda_device):
     assert ps.LAUNCHES["patch_sample"] == before + len(pyr)
 
 
+class _Frame:
+    width, height = 640, 512
+
+
+def _edge_inputs(device, n, n_levels, grads, seed):
+    """A seeded padded pyramid (704x576 halving) and n level-0 centers led
+    by the hard cases of `chip_smoke.patch_sample_centers` (windows clamped
+    on each side, a stride outside the set, NaN and inf centers); with
+    gradients, grad_units holding 0 and NaN among positive values."""
+    rng = np.random.default_rng(seed)
+    pyr = [
+        torch.as_tensor(rng.uniform(0, 255, (576 >> lvl, 704 >> lvl)).astype(np.float32)).to(device)
+        for lvl in range(n_levels)
+    ]
+    c, s = chip_smoke.patch_sample_centers(rng, n, _Frame)
+    gu = None
+    if grads:
+        g = (s * rng.uniform(0.5, 4.0, n)).astype(np.float32)
+        g[2:n:7] = 0.0
+        g[3:n:11] = np.nan
+        gu = torch.as_tensor(g).to(device)
+    return pyr, torch.as_tensor(c).to(device), torch.as_tensor(s).to(device), gu
+
+
+# (N, levels, patch, gradients): N of 0 and 1; N and N * L that fill no
+# block or gradient chunk evenly; N = 16,384 (the grid walks several
+# passes); L = 1, 2 and 3; the largest lattices (patch 14 with gradients,
+# 16 without); an odd patch (one texel per thread, scalar stores); an even
+# patch that is no multiple of 4 (a thread's four texels span two rows).
+EDGE_CASES = [
+    (0, 1, 8, True), (0, 3, 12, False), (1, 1, 8, False), (1, 1, 8, True), (1, 3, 12, False),
+    (7, 1, 8, True), (13, 2, 12, False), (209, 3, 12, False), (208, 1, 14, True),
+    (208, 1, 16, False), (208, 3, 16, False), (45, 1, 5, True), (45, 2, 7, False),
+    (33, 1, 6, False), (33, 3, 6, False), (33, 1, 6, True), (33, 1, 10, True),
+    (16384, 1, 8, True), (16384, 1, 8, False), (16384, 3, 12, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_levels,patch,grads", EDGE_CASES)
+def test_patch_sample_edges_match_plain(cuda_device, n, n_levels, patch, grads):
+    pyr, c, s, gu = _edge_inputs(cuda_device, n, n_levels, grads, seed=n + 7 * patch + n_levels)
+    before = ps.LAUNCHES["patch_sample"]
+    if n_levels == 1:
+        got = _as_tuple(ps.patch_sample(pyr[0], c, s, patch, chip_smoke.PS_PAD, grad_units=gu))
+        want = _as_tuple(ps.patch_sample_plain(pyr[0], c, s, patch, chip_smoke.PS_PAD, grad_units=gu))
+    else:
+        got = (ps.patch_sample_levels(pyr, c, patch, chip_smoke.PS_PAD),)
+        want = (ps.patch_sample_levels_plain(pyr, c, patch, chip_smoke.PS_PAD),)
+    torch.cuda.synchronize()
+    assert ps.LAUNCHES["patch_sample"] == before + (1 if n else 0)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.is_contiguous()
+        assert chip_smoke.same_bits(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grads", [False, True])
+def test_patch_sample_replays_in_a_cuda_graph(cuda_device, grads):
+    """One call captured in a CUDA graph, then replayed on new centers
+    copied into the captured input: the replay equals the plain version
+    of the new inputs bit for bit."""
+    pyr, c, s, gu = _edge_inputs(cuda_device, 208, 1, grads, seed=3)
+    _, c2, _, _ = _edge_inputs(cuda_device, 208, 1, grads, seed=4)
+
+    def call():
+        return _as_tuple(ps.patch_sample(pyr[0], c, s, 8, chip_smoke.PS_PAD, grad_units=gu))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = ps.LAUNCHES["patch_sample"]
+    with torch.cuda.graph(graph):
+        out = call()
+    assert ps.LAUNCHES["patch_sample"] == before + 1
+    c.copy_(c2)
+    graph.replay()
+    want = _as_tuple(ps.patch_sample_plain(pyr[0], c2, s, 8, chip_smoke.PS_PAD, grad_units=gu))
+    torch.cuda.synchronize()
+    for a, b in zip(out, want):
+        assert chip_smoke.same_bits(a, b)
+
+
 @pytest.mark.cuda
 def test_patch_sample_rejects_bad_inputs(cuda_device):
     img = torch.zeros((80, 96), device=cuda_device)

@@ -172,6 +172,105 @@ def test_wrapper_rejects_bad_inputs():
         TPS.patch_sample_levels([img] * 4, c, 12, PAD)
 
 
+def test_cuda_path_checks_reject_what_check_rejects():
+    # The CUDA wrapper checks its inputs with `_validate` (cached static
+    # arguments, plain int and identity tests on the tensors) instead of
+    # `_check`; both run on CPU tensors, so hold them together here: every
+    # bad input of test_wrapper_rejects_bad_inputs raises ValueError, and
+    # the good calls pass both.
+    img = torch.zeros((80, 80))
+    c = torch.full((3, 2), 40.0)
+    s = torch.ones(3, dtype=torch.int32)
+    good = dict(levels=(img,), centers=c, strides=s, patch_size=8, stride_set=(1, 2, 4), grad_units=None)
+    bad = [
+        dict(levels=(img.double(),)),
+        dict(centers=c.double()),
+        dict(centers=torch.full((3,), 40.0)),
+        dict(centers=torch.full((3, 3), 40.0)),
+        dict(strides=s.long()),
+        dict(strides=torch.ones(4, dtype=torch.int32)),
+        dict(strides=torch.ones((3, 1), dtype=torch.int32)),
+        dict(grad_units=torch.ones(3, dtype=torch.float64)),
+        dict(grad_units=torch.ones(2)),
+        dict(levels=(torch.zeros((80, 160))[:, ::2],)),
+        dict(centers=torch.full((2, 3), 40.0).T),
+        dict(strides=torch.ones(6, dtype=torch.int32)[::2]),
+        dict(grad_units=torch.ones(6)[::2]),
+        dict(levels=(torch.zeros((20, 80)),)),
+        dict(levels=(torch.zeros((80, 29)),)),
+        dict(levels=(torch.zeros(80),)),
+        dict(levels=(img,) * 4),
+        dict(levels=()),
+        dict(stride_set=(1, 2, 4, 8)),
+        dict(stride_set=()),
+        dict(stride_set=(0,)),
+        dict(patch_size=15, grad_units=torch.ones(3)),
+        dict(patch_size=17),
+        dict(patch_size=0),
+    ]
+    for override in bad:
+        args = dict(good, **override)
+        with pytest.raises(ValueError):
+            TPS._check(**args)
+        with pytest.raises(ValueError):
+            TPS._validate(**args, pad=PAD)
+    for override in (dict(), dict(grad_units=torch.ones(3)), dict(levels=(img, img[:40, :40].contiguous())),
+                     dict(strides=None, stride_set=(1,), patch_size=16), dict(stride_set=[2, 4])):
+        args = dict(good, **override)
+        TPS._check(**args)
+        params = list(TPS._validate(**args, pad=PAD))
+        shapes = [d for lvl in args["levels"] for d in lvl.shape]
+        sset = list(args["stride_set"])
+        assert params[: len(shapes)] == shapes and params[6:9] == [len(args["levels"]), args["patch_size"], PAD]
+        assert params[9 : 9 + len(sset)] == sset and params[12] == len(sset)
+
+
+WIDE = TPinhole(*scene_mod.GNSS_CAMERA)  # configs/mars_lvig_gnss.yaml: 1280x1024
+
+
+@pytest.fixture(scope="module")
+def wide_cases():
+    """Phase 1's cases at its 1280x1024 size (N = 832, one candidate per
+    40-px cell) on the padded pyramid of a seeded image, CPU tensors."""
+    img = torch.from_numpy(_img(61, WIDE.height, WIDE.width))
+    pyr = TVIO.pyramid_padded(img, 3)
+    cases = {c["name"]: c for c in scene_mod.patch_sample_cases(pyr, WIDE, scene_mod.PS_WIDE_N, seed=62)}
+    return img, cases
+
+
+@pytest.mark.parametrize("form", ["select", "update_L0", "update_L1", "update_L2"])
+def test_wide_frame_matches_jax(wide_cases, form):
+    # The single-level forms at N = 832 (clamped, out-of-set and non-finite
+    # centers among them): patch_sample_plain against JAX's
+    # strided_patch_sample on the same level image, ATOL as above.
+    _, cases = wide_cases
+    case = cases[form]
+    gu = case["grad_units"]
+    got = TPS.patch_sample_plain(
+        case["levels"][0], case["centers"][0], case["strides"], 8, PAD, case["stride_set"], gu
+    )
+    want = J.strided_patch_sample(
+        jnp.asarray(case["levels"][0].numpy()), jnp.asarray(case["centers"][0].numpy()),
+        jnp.asarray(case["strides"].numpy()), 8, PAD, stride_set=case["stride_set"],
+        grad_units=None if gu is None else jnp.asarray(gu.numpy()),
+    )
+    got, want = (got, want) if gu is not None else ((got,), (want,))
+    for g, w in zip(got, want):
+        assert g.shape == (scene_mod.PS_WIDE_N, 64)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=ATOL)
+    assert np.isnan(got[0].numpy()).any()  # the non-finite centers reach the output
+
+
+def test_wide_frame_stored_patch_pyramid_matches_jax(wide_cases):
+    img, cases = wide_cases
+    px = cases["stored"]["centers"][0]
+    cfg = dict(capacity=64, max_obs=2)
+    got = TVIO.stored_patch_pyramid(img, px, TVM.VisualMapConfig(**cfg))
+    want = JVIO.stored_patch_pyramid(jnp.asarray(img.numpy()), jnp.asarray(px.numpy()), JVM.VisualMapConfig(**cfg))
+    assert got.shape == (scene_mod.PS_WIDE_N, 3, 12, 12)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
+
+
 CAM = TPinhole(320, 256, 200.0, 200.0, 160.0, 128.0)
 VM_CFG = TVM.VisualMapConfig(capacity=1024, max_obs=4)
 CFG = TVIO.VioConfig()
