@@ -657,7 +657,6 @@ def phase_patch_sample(device):
     yardstick; the wrapper's host split at N = PS_SPLIT_N."""
     import torch
 
-    from fastlivo_tpu_torch.ops import patch_sample as ps
     from fastlivo_tpu_torch.ops.camera import Pinhole
 
     cam, pyr = patch_sample_frame(device)
@@ -666,9 +665,9 @@ def phase_patch_sample(device):
     runs = [(cam, pyr, n) for n in PS_NS] + [(wide_cam, wide_pyr, PS_WIDE_N)]
     for cam, pyr, n in runs:
         for case in patch_sample_cases(pyr, cam, n):
-            before = ps.LAUNCHES["patch_sample"]
+            before = read_launches()["patch_sample"]
             got = case["kernel"]()
-            if ps.LAUNCHES["patch_sample"] != before + 1:
+            if read_launches()["patch_sample"] != before + 1:
                 raise AssertionError(f"patch_sample {case['name']} n={n}: not one launch")
             want = case["plain"]()
             torch.cuda.synchronize()
@@ -691,22 +690,25 @@ def phase_patch_sample(device):
     return rows, split
 
 
-def reset_launches():
-    """Every kernel wrapper's launch count to 0."""
-    from fastlivo_tpu_torch.ops import pallas_windows as pw
-    from fastlivo_tpu_torch.ops import patch_sample as ps
+KERNELS = ("extract_windows", "patch_sample")  # the wrappers' `<kernel>.launches` counters
+_LAUNCH_BASE = {}  # the counters at the last reset_launches
 
-    for counter in (pw.LAUNCHES, ps.LAUNCHES):
-        for key in counter:
-            counter[key] = 0
+
+def reset_launches():
+    """Start every kernel wrapper's launch count from 0 (the tracer's
+    counters are cumulative: a reading is a difference)."""
+    from fastlivo_tpu_torch.utils import timing
+
+    _LAUNCH_BASE.clear()
+    _LAUNCH_BASE.update(timing.counters())
 
 
 def read_launches():
-    """Every kernel wrapper's launch count, by kernel name."""
-    from fastlivo_tpu_torch.ops import pallas_windows as pw
-    from fastlivo_tpu_torch.ops import patch_sample as ps
+    """Every kernel wrapper's launches since reset_launches, by kernel name."""
+    from fastlivo_tpu_torch.utils import timing
 
-    return {key: c[key] for c in (pw.LAUNCHES, ps.LAUNCHES) for key in c}
+    now = timing.counters()
+    return {k: now.get(f"{k}.launches", 0) - _LAUNCH_BASE.get(f"{k}.launches", 0) for k in KERNELS}
 
 
 def _summary_np(x):
@@ -1062,22 +1064,31 @@ def check_cli_run(pipe, out_dir, frames=False):
 
 
 def profile_call(fn):
-    """torch.profiler around one call: (kernel events, the knn range's
-    device µs), kernel events summed per name."""
+    """torch.profiler around one call, with the tracer's profiler ranges
+    on: (kernel events, the knn range's device µs), kernel events summed
+    per name. A program range's device-side copy (a device event with a
+    span's name) is not a kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from fastlivo_tpu_torch.utils import timing
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        fn()
-        torch.cuda.synchronize()
+    timing.enable(ranges=True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        timing.disable()
+    ranges = {s.name for s in timing.drain().spans}
     kernels, knn_us = {}, 0.0
     for e in prof.key_averages():
         if e.key == "voxel_map.knn":
             if e.device_type == DeviceType.CPU:
                 knn_us += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-        elif e.device_type == DeviceType.CUDA:
+        elif e.device_type == DeviceType.CUDA and e.key not in ranges:
             us, n = kernels.get(e.key, (0.0, 0))
             kernels[e.key] = (us + _device_us(e), n + e.count)
     return kernels, knn_us
@@ -1086,16 +1097,17 @@ def profile_call(fn):
 def cli_profile(log, cfg, device, first=CLI_PROFILE_SCAN, n_prof=2):
     """Replays the log through the runner's own stream into a pipeline and
     profiles `n_prof` LIO steps from scan-end group `first` on, then counts
-    the host syncs of the next one."""
+    the host syncs of the next one (torch's sync debug mode, and the
+    program's own by site from the tracer's `sync.<site>` counters)."""
     import torch
 
     from fastlivo_tpu_torch import run
     from fastlivo_tpu_torch.models.pipeline import LivoPipeline
-    from fastlivo_tpu_torch.utils.timing import StageTimer
+    from fastlivo_tpu_torch.utils import timing
 
     pipe = LivoPipeline(cfg, device=device)
     kernels, knn_us, n_scans, syncs = {}, 0.0, 0, None
-    for item in run.replay(log, cfg, pipe, StageTimer()):
+    for item in run.replay(log, cfg, pipe, timing.StageTimer()):
         if item is None:
             continue
         group, scan_input, t_abs = item
@@ -1110,7 +1122,10 @@ def cli_profile(log, cfg, device, first=CLI_PROFILE_SCAN, n_prof=2):
             for k, (t, n) in got.items():
                 kernels[k] = (kernels.get(k, (0.0, 0))[0] + t, kernels.get(k, (0.0, 0))[1] + n)
         elif n_scans == first + n_prof:
+            before = timing.counters()
             syncs = count_call_syncs(step)
+            sites = {k: v for k, v in timing.counter_delta(timing.counters(), before).items()
+                     if k.startswith("sync.")}
             break
         else:
             step()
@@ -1126,6 +1141,7 @@ def cli_profile(log, cfg, device, first=CLI_PROFILE_SCAN, n_prof=2):
         knn_device_ms_per_step=knn_us / 1e3 / n_prof,
         knn_share=knn_us / device_us if device_us else None,
         host_syncs_per_step=syncs,
+        program_syncs_per_step=sites,
         top_kernels=[dict(name=k[:90], calls=n, device_ms=t / 1e3) for k, (t, n) in top],
     )
 

@@ -20,6 +20,7 @@ import numpy as np
 from fastlivo_tpu_torch.io.sensors import ImageFrame, ImuSample, LidarScan
 from fastlivo_tpu_torch.models.imu import ImuWindow
 from fastlivo_tpu_torch.models.pipeline import ScanInput
+from fastlivo_tpu_torch.utils import timing
 
 
 @dataclass
@@ -68,10 +69,12 @@ class MeasurementSynchronizer:
         self._current: Optional[LidarScan] = None
         self._current_beg = 0.0
 
+    @timing.traced("io.push")
     def push_lidar(self, scan: LidarScan):
         if len(scan.pts) > 1:
             self.lidar_buffer.append(scan)
 
+    @timing.traced("io.push")
     def push_imu(self, sample: ImuSample):
         # A timestamp loopback (log restart) drops the buffered samples.
         if sample.stamp < self.last_timestamp_imu:
@@ -85,6 +88,7 @@ class MeasurementSynchronizer:
             sample = ImuSample(stamp=sample.stamp, gyr=gyr, acc=acc)
         self.imu_buffer.append(sample)
 
+    @timing.traced("io.push")
     def push_image(self, frame: ImageFrame):
         if self.img_enabled:
             if self.img_delta_time:
@@ -97,6 +101,7 @@ class MeasurementSynchronizer:
             out.append(self.imu_buffer.popleft())
         return out
 
+    @timing.traced("io.next_group")
     def next_group(self) -> Optional[LidarMeasureGroup]:
         """Emit the next measurement group, or None if more data is needed."""
         if self._current is None:
@@ -155,6 +160,7 @@ class WindowBuilder:
         self.last_end_time: Optional[float] = None
         self._scan_cursor = 0
 
+    @timing.traced("io.build")
     def build(self, group: LidarMeasureGroup):
         """Returns (ScanInput with NumPy leaves, t_abs_end). Points included:
         for scan-end groups the rest of the sweep, for image-bounded groups

@@ -37,6 +37,7 @@ from fastlivo_tpu_torch.ops.scatter import (
     set_drop,
 )
 from fastlivo_tpu_torch.ops.voxelize import lexsort3
+from fastlivo_tpu_torch.utils import timing
 
 INT32_MAX = torch.iinfo(torch.int32).max
 
@@ -356,6 +357,7 @@ def insert(
     need0 = uvalid & (pr.found < 0)
 
     meta = m.meta
+    timing.sync_point("claim_any")
     if bool(need0.any()):  # host read: the JAX lax.cond
         fresh_rows = _pack_rows(
             uvox_f,
@@ -365,6 +367,7 @@ def insert(
         )
 
         def claim_round(meta, cand, need):
+            timing.count("map.claim_rounds")
             claim = torch.full((c,), INT32_MAX, dtype=torch.int32, device=dev)
             claim = reduce_drop(claim, torch.where(need, cand, c), uids, "amin")
             winner = need & (claim[cand.long()] == uids)
@@ -378,6 +381,7 @@ def insert(
             found, cand = probe(m._replace(meta=meta), uvox, cfg)
             need = uvalid & (found < 0)
             meta = claim_round(meta, cand, need)
+            timing.sync_point("claim_any")
             need_any = bool(need.any())  # host read per trip
             round_i += 1
     m1 = m._replace(meta=meta)
@@ -479,7 +483,7 @@ def nearby_offsets(nearby_type: int) -> Tuple[Tuple[int, int, int], ...]:
     raise ValueError(f"nearby_type must be 0/6/18/26, got {nearby_type}")
 
 
-@torch.profiler.record_function("voxel_map.knn")  # its share in a profile
+@timing.traced("voxel_map.knn", ranged=True)  # a profiler range in every profile
 def knn(
     m: VoxelHashMap,
     queries: torch.Tensor,

@@ -26,6 +26,7 @@ from fastlivo_tpu_torch.maps import voxel_map as vm
 from fastlivo_tpu_torch.models import ieskf
 from fastlivo_tpu_torch.ops import linalg, plane, so3
 from fastlivo_tpu_torch.state import DIM_STATE, NavState, boxminus, boxplus
+from fastlivo_tpu_torch.utils import timing
 
 _R2D = 57.29577951308232
 
@@ -292,6 +293,11 @@ def lio_update(
         src_cov = scan_source_covariances(pts_body, pts_mask, cfg)
 
     def search(rot, pos):
+        timing.count("lio.eskf.searches")
+        with timing.span("lio.eskf.search"):
+            return _search(rot, pos)
+
+    def _search(rot, pos):
         if surfel_mode:
             surf = surfel_match(rot, pos, pts_body, lidar_map, rot_il, t_il, map_cfg, cfg, map_axis)
             eig = torch.where(torch.isfinite(surf.min_eig), surf.min_eig, 0.0)
@@ -340,29 +346,33 @@ def lio_update(
     search_en = False
     it = 0
     while True:  # the JAX while_loop: one host read of (done, search_en) per trip
+        timing.count("lio.eskf.trips")
         if search_en:
             nbr, nbr_valid = search(rot, pos)
-        hth6, hty6, n_eff, res_sum = innovation(rot, pos, nbr, nbr_valid)
-        hth, hty = _embed18(hth6, hty6, dtype)
-        if extra_hth is not None:
-            hth = hth + extra_hth
-            hty = hty + extra_hty
+        with timing.span("lio.eskf.innovation"):
+            hth6, hty6, n_eff, res_sum = innovation(rot, pos, nbr, nbr_valid)
+        with timing.span("lio.eskf.solve"):
+            hth, hty = _embed18(hth6, hty6, dtype)
+            if extra_hth is not None:
+                hth = hth + extra_hth
+                hty = hty + extra_hty
 
-        cur = NavState(rot, pos, vel, bg, ba, grav, state_prop.cov)
-        vec = boxminus(state_prop, cur)
-        dx, g_mat = ieskf.map_step(p_inv, hth, hty, vec)
-        new = boxplus(cur, dx)
-        rot_add = torch.linalg.vector_norm(dx[0:3])
-        t_add = torch.linalg.vector_norm(dx[3:6])
-        converged = (rot_add * _R2D < cfg.converge_rot_deg) & (
-            t_add * 100.0 < cfg.converge_trans_cm
-        )
-        want_rematch = converged | ((rematch_num == 0) & (it == cfg.max_iteration - 2))
-        rematch_num = rematch_num + want_rematch.to(torch.int32)
-        done = (rematch_num >= 2) | (it == cfg.max_iteration - 1)
-        rot, pos, vel, bg, ba, grav = new.rot, new.pos, new.vel, new.bg, new.ba, new.grav
-        it += 1
-        flags = torch.stack([done, want_rematch]).tolist()
+            cur = NavState(rot, pos, vel, bg, ba, grav, state_prop.cov)
+            vec = boxminus(state_prop, cur)
+            dx, g_mat = ieskf.map_step(p_inv, hth, hty, vec)
+            new = boxplus(cur, dx)
+            rot_add = torch.linalg.vector_norm(dx[0:3])
+            t_add = torch.linalg.vector_norm(dx[3:6])
+            converged = (rot_add * _R2D < cfg.converge_rot_deg) & (
+                t_add * 100.0 < cfg.converge_trans_cm
+            )
+            want_rematch = converged | ((rematch_num == 0) & (it == cfg.max_iteration - 2))
+            rematch_num = rematch_num + want_rematch.to(torch.int32)
+            done = (rematch_num >= 2) | (it == cfg.max_iteration - 1)
+            rot, pos, vel, bg, ba, grav = new.rot, new.pos, new.vel, new.bg, new.ba, new.grav
+            it += 1
+            timing.sync_point("eskf_flags")  # the trip's host read, where the device catches up
+            flags = torch.stack([done, want_rematch]).tolist()
         if flags[0]:
             break
         search_en = flags[1]

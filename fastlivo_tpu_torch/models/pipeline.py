@@ -43,6 +43,7 @@ from fastlivo_tpu_torch.ops import so3, voxelize
 from fastlivo_tpu_torch.ops.camera import Pinhole
 from fastlivo_tpu_torch.parallel.axis import map_axis_of
 from fastlivo_tpu_torch.state import NavState
+from fastlivo_tpu_torch.utils import timing
 
 
 @dataclass(frozen=True)
@@ -193,27 +194,44 @@ def lio_scan_step(
     rank's slice in points mode and the whole cloud in map-sharded mode.
     """
     map_axis, query_axis = axis_roles(axis_name, cfg)
-    state_prop, poses = _propagate(state, scan, cfg)
-    pts_und = imu_mod.undistort(
-        scan.pts, scan.t_offs, scan.mask, poses, state_prop, rot_il, t_il
-    )
-    if axis_name is None:
-        ds_pts, ds_mask = voxelize.voxel_downsample(pts_und, scan.mask, cfg.ds_leaf, cfg.ds_capacity)
-    else:
-        ds_pts, ds_mask = voxelize.voxel_downsample(
-            axis_name.all_gather(pts_und), axis_name.all_gather(scan.mask), cfg.ds_leaf,
-            cfg.ds_capacity,
+    with timing.span("lio.propagate"):
+        state_prop, poses = _propagate(state, scan, cfg)
+    with timing.span("lio.undistort"):
+        pts_und = imu_mod.undistort(
+            scan.pts, scan.t_offs, scan.mask, poses, state_prop, rot_il, t_il
         )
-        if query_axis is not None:
-            shard = cfg.ds_capacity // query_axis.size
-            lo = query_axis.index * shard
-            ds_pts, ds_mask = ds_pts[lo: lo + shard], ds_mask[lo: lo + shard]
+    with timing.span("lio.downsample"):
+        if axis_name is None:
+            ds_pts, ds_mask = voxelize.voxel_downsample(pts_und, scan.mask, cfg.ds_leaf, cfg.ds_capacity)
+        else:
+            ds_pts, ds_mask = voxelize.voxel_downsample(
+                axis_name.all_gather(pts_und), axis_name.all_gather(scan.mask), cfg.ds_leaf,
+                cfg.ds_capacity,
+            )
+            if query_axis is not None:
+                shard = cfg.ds_capacity // query_axis.size
+                lo = query_axis.index * shard
+                ds_pts, ds_mask = ds_pts[lo: lo + shard], ds_mask[lo: lo + shard]
 
-    posterior, info, (nbr, nv) = lio.lio_update(
-        state_prop, lidar_map, ds_pts, ds_mask, rot_il, t_il, cfg.map_cfg, cfg.lio_cfg,
-        extra_hth=extra_hth, extra_hty=extra_hty, axis_name=query_axis, map_axis=map_axis,
-    )
+    with timing.span("lio.eskf"):
+        posterior, info, (nbr, nv) = lio.lio_update(
+            state_prop, lidar_map, ds_pts, ds_mask, rot_il, t_il, cfg.map_cfg, cfg.lio_cfg,
+            extra_hth=extra_hth, extra_hty=extra_hty, axis_name=query_axis, map_axis=map_axis,
+        )
 
+    with timing.span("lio.insert"):
+        lidar_map, p_w, ds_mask, jump, accept, posterior = _gate_and_insert(
+            state_prop, posterior, lidar_map, ds_pts, ds_mask, nbr, nv, rot_il, t_il, cfg,
+            map_axis, query_axis,
+        )
+    summary = step_summary(posterior, info, jump, accept)
+    return posterior, lidar_map, info, (p_w, ds_mask), summary
+
+
+def _gate_and_insert(state_prop, posterior, lidar_map, ds_pts, ds_mask, nbr, nv, rot_il, t_il,
+                     cfg: StepConfig, map_axis, query_axis):
+    """The health gate, then the insert gate and the map insert of the
+    accepted scan: (map, world cloud, its mask, jump, accept, posterior)."""
     jump = torch.linalg.vector_norm(posterior.pos - state_prop.pos)
     finite = torch.all(torch.isfinite(posterior.pos)) & torch.all(torch.isfinite(posterior.cov))
     accept = finite & (jump <= cfg.lio_cfg.max_jump_m)
@@ -252,9 +270,7 @@ def lio_scan_step(
             lidar_map = vm.sharded_insert(lidar_map, p_w_ins, add, cfg.map_cfg, map_axis)
         else:
             lidar_map = vm.insert(lidar_map, p_w_ins, add, cfg.map_cfg)
-
-    summary = step_summary(posterior, info, jump, accept)
-    return posterior, lidar_map, info, (p_w, ds_mask), summary
+    return lidar_map, p_w, ds_mask, jump, accept, posterior
 
 
 def lio_scan_multi(
@@ -349,16 +365,20 @@ def bootstrap_map(
 
 
 def scan_to_device(scan: ScanInput, device) -> ScanInput:
-    """A ScanInput with NumPy (or tensor) leaves, on `device`."""
+    """A ScanInput with NumPy (or tensor) leaves, on `device`: one copy
+    per leaf, each a host synchronization from pageable memory on the GPU
+    (counted on every device)."""
 
     def t(x):
+        timing.sync_point("to_device")
         return torch.as_tensor(x).to(device)
 
-    return ScanInput(
-        pts=t(scan.pts), t_offs=t(scan.t_offs), mask=t(scan.mask),
-        imu=imu_mod.ImuWindow(*(t(x) for x in scan.imu)),
-        t_end=t(scan.t_end), acc_scale=t(scan.acc_scale),
-    )
+    with timing.span("pipeline.to_device"):
+        return ScanInput(
+            pts=t(scan.pts), t_offs=t(scan.t_offs), mask=t(scan.mask),
+            imu=imu_mod.ImuWindow(*(t(x) for x in scan.imu)),
+            t_end=t(scan.t_end), acc_scale=t(scan.acc_scale),
+        )
 
 
 def _host(x) -> np.ndarray:
@@ -437,6 +457,9 @@ class LivoPipeline:
         self._epoch_stamps: List[float] = []
         self._last_vio_img: Optional[np.ndarray] = None  # for the loop gate
         self._img_frame_idx = 0
+        # Ordinal of the last process_scan / process_image call: the update
+        # id of the tracer's spans (utils.timing).
+        self.n_updates = 0
 
         # Loop closure + pose graph back end; detection runs on a worker
         # thread unless loop.background is off, and finish() drains it.
@@ -593,13 +616,20 @@ class LivoPipeline:
 
     def _record(self, t_abs: float, summary: torch.Tensor) -> np.ndarray:
         """One host read of a step summary; its pose joins the trajectory."""
-        s = summary.cpu().numpy()
+        timing.sync_point("readback")
+        with timing.span("pipeline.readback"):
+            s = summary.cpu().numpy()
         self.trajectory.append((t_abs, s[0:3], s[3:7]))
         return s
 
     def process_scan(self, scan: ScanInput, t_abs: float):
         """Feed one scan-end measurement group. Returns LioInfo, or None
         during static initialization and the EKF warm-up."""
+        self.n_updates += 1
+        with timing.span("pipeline.process_scan", update=self.n_updates):
+            return self._process_scan(scan, t_abs)
+
+    def _process_scan(self, scan: ScanInput, t_abs: float):
         if not self.initializer.done:
             self._init_feed(scan)
             return None
@@ -623,6 +653,7 @@ class LivoPipeline:
                 # Rollback target if every scan of this batch is rejected.
                 self._batch_prev_cloud = (self.world_cloud, self.world_mask)
             self.state, self.map, _, (self.world_cloud, self.world_mask), summary = self._lio_step(scan)
+            timing.count("pipeline.lio_updates")
             self._epoch_stamps.append(t_abs)
             self._defer(summary)
             if self._retain_clouds:
@@ -640,11 +671,13 @@ class LivoPipeline:
             # The GNSS block is linearized at the propagated prior: one
             # extra propagate and one host read of (rot, pos) per scan.
             sp, _ = _propagate(self.state, scan, self.step_cfg)
+            timing.sync_point("gnss_prior", 2)
             extra = self.gnss.observe(t_abs, _host(sp.rot), _host(sp.pos))
             self.gnss_blocks += extra is not None
         self.state, self.map, info, (self.world_cloud, self.world_mask), summary = self._lio_step(
             scan, extra
         )
+        timing.count("pipeline.lio_updates")
         self._epoch_stamps.append(t_abs)
         s = self._record(t_abs, summary)
         n_eff, accepted = int(s[7]), bool(s[9] > 0.5)
@@ -659,7 +692,9 @@ class LivoPipeline:
             self.health["resets"] += 1
             self.world_cloud, self.world_mask = prev_cloud
         if self.loop_backend is not None:
-            # One device-to-host copy of the masked world cloud per scan.
+            # One device-to-host copy of the masked world cloud per scan,
+            # and one of the attitude.
+            timing.sync_point("loop_cloud", 2)
             wc = self.world_cloud[self.world_mask].cpu().numpy()
             self.loop_backend.on_scan(
                 _host(self.state.rot), s[0:3], wc, stamp=t_abs, img=self._last_vio_img,
@@ -669,6 +704,11 @@ class LivoPipeline:
     def process_image(self, scan: ScanInput, img, t_abs: float):
         """Feed one image-bounded measurement group (VIO update at the image
         time). Returns VioInfo, or None before initialization."""
+        self.n_updates += 1
+        with timing.span("pipeline.process_image", update=self.n_updates):
+            return self._process_image(scan, img, t_abs)
+
+    def _process_image(self, scan: ScanInput, img, t_abs: float):
         if not self.initializer.done:
             # Image-bounded groups carry part of each sweep's IMU window;
             # the static initialization needs them too.
@@ -684,6 +724,7 @@ class LivoPipeline:
             self.state, self.visual_map, scan, img, self.world_cloud, self.world_mask,
             self.rot_ci, self.t_ci, self.step_cfg,
         )
+        timing.count("pipeline.vio_updates")
         if self.cfg.runtime.img_save_en and self.rank == 0:
             self._dump_annotated_frame(img)
         if self._batch_eligible:
@@ -732,7 +773,9 @@ class LivoPipeline:
         self._pending_n_scans = 0
         # A copy: on the CPU, .cpu() would alias the buffer the next
         # batch overwrites.
-        rows = self._sum_buf[: len(pending)].cpu().numpy().copy()
+        timing.sync_point("readback")
+        with timing.span("pipeline.readback"):
+            rows = self._sum_buf[: len(pending)].cpu().numpy().copy()
         last_ok = None
         for k, entry in enumerate(pending):
             kind, t_abs = entry[0], entry[1]
@@ -753,6 +796,7 @@ class LivoPipeline:
             last_ok = k
             if cloud is not None:  # kept only for the loop back end
                 rot = so3.quat_to_rot(torch.as_tensor(s[3:7], dtype=torch.float64)).numpy()
+                timing.sync_point("loop_cloud")
                 self.loop_backend.on_scan(rot, s[0:3], cloud[mask].cpu().numpy(), stamp=t_abs, img=img)
         if not self._retain_clouds:
             # No clouds were kept; world_cloud already holds the last

@@ -26,6 +26,7 @@ from fastlivo_tpu_torch.ops import linalg, patch_sample, so3
 from fastlivo_tpu_torch.ops import scatter as scatter_ops
 from fastlivo_tpu_torch.ops.camera import Pinhole
 from fastlivo_tpu_torch.state import DIM_STATE, NavState, boxminus, boxplus
+from fastlivo_tpu_torch.utils import timing
 
 _R2D = 57.29577951308232
 # Padding for window-based patch sampling (see the JAX module: windows are
@@ -384,6 +385,7 @@ def photometric_update(
         last_error = torch.tensor(torch.inf, dtype=dtype, device=dev)
         it = 0
         while True:  # the JAX while_loop: one host read of `done` per trip
+            timing.count("vio.trips")
             h, res, err = residuals_and_h(nav[0], nav[1], level)
             improved = err <= last_error
 
@@ -407,6 +409,7 @@ def photometric_update(
             last_error = torch.where(improved, err, last_error)
             it += 1
             done = (~improved) | converged | (it >= cfg.max_iterations)
+            timing.sync_point("vio_flags")
             if bool(done):
                 break
         return NavState(*nav, state_prop.cov), g_mat, last_error
@@ -566,16 +569,19 @@ def vio_update(
 ) -> Tuple[NavState, vmap_mod.VisualMap, VioInfo]:
     """Full per-frame VIO: select -> update -> maintain, on one padded
     pyramid of the frame."""
-    pyr = pyramid_padded(img, max(cfg.levels, vm_cfg.levels))
-    sel, _ = select(
-        state_prop, vmap, img, scan_world, scan_mask, cam, rot_ci, t_ci, vm_cfg, cfg, pyr
-    )
-    posterior, err0, err1 = photometric_update(
-        state_prop, sel, img, cam, rot_ci, t_ci, cfg, pyr
-    )
-    vmap, n_new, n_obs = maintain(
-        posterior, vmap, sel, img, scan_world, scan_mask, cam, rot_ci, t_ci, vm_cfg, cfg, pyr
-    )
+    with timing.span("vio.select"):
+        pyr = pyramid_padded(img, max(cfg.levels, vm_cfg.levels))
+        sel, _ = select(
+            state_prop, vmap, img, scan_world, scan_mask, cam, rot_ci, t_ci, vm_cfg, cfg, pyr
+        )
+    with timing.span("vio.update"):
+        posterior, err0, err1 = photometric_update(
+            state_prop, sel, img, cam, rot_ci, t_ci, cfg, pyr
+        )
+    with timing.span("vio.maintain"):
+        vmap, n_new, n_obs = maintain(
+            posterior, vmap, sel, img, scan_world, scan_mask, cam, rot_ci, t_ci, vm_cfg, cfg, pyr
+        )
     info = VioInfo(
         n_selected=torch.sum(sel.valid.to(torch.int32)).to(torch.int32),
         error_before=err0,

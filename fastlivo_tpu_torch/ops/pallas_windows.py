@@ -16,9 +16,8 @@ import ctypes
 import torch
 
 from fastlivo_tpu_torch.ops import cuda_build
+from fastlivo_tpu_torch.utils import timing
 
-# Kernel launches since the last reset (the wrapper adds one per launch).
-LAUNCHES = {"extract_windows": 0}
 
 _FN = None
 
@@ -83,7 +82,7 @@ def extract_windows_cuda(
     )
     if err != 0:
         raise RuntimeError(f"extract_windows kernel launch failed: cudaError {err}")
-    LAUNCHES["extract_windows"] += 1
+    timing.count("extract_windows.launches")  # one per launch
     return out
 
 

@@ -27,9 +27,8 @@ import torch
 
 from fastlivo_tpu_torch.ops import cuda_build
 from fastlivo_tpu_torch.ops.pallas_windows import extract_windows_plain
+from fastlivo_tpu_torch.utils import timing
 
-# Kernel launches since the last reset (the wrapper adds one per launch).
-LAUNCHES = {"patch_sample": 0}
 
 MAX_LEVELS = 3
 MAX_STRIDES = 3
@@ -295,7 +294,7 @@ def _launch(levels, centers, strides, patch_size, pad, stride_set, grad_units):
     err = _kernel_fn()(*args, _stream(centers))
     if err != 0:
         raise RuntimeError(f"patch_sample kernel launch failed: cudaError {err}")
-    LAUNCHES["patch_sample"] += 1
+    timing.count("patch_sample.launches")  # one per launch
     return res
 
 

@@ -6,7 +6,11 @@ fastlivo_tpu/run.py).
 
 The runner streams the log through the measurement synchronizer and the
 pipeline on one device (the GPU unless `--device cpu`), prints per-stage
-timing at the end, and writes tum.txt, map.pcd and time_log.csv to --out.
+timing and the program's counters per scan at the end (`utils.timing`),
+and writes tum.txt, map.pcd and time_log.csv to --out. `--profile DIR`
+switches the program's tracer on with profiler ranges: DIR/trace.json (a
+torch.profiler chrome trace) then carries the program's spans beside the
+device's kernels, and the closing report adds the span table.
 
 Multi-device: one process per rank under torchrun, every rank reading the
 log and rank 0 writing the outputs,
@@ -42,6 +46,7 @@ from fastlivo_tpu_torch.io.sync import LidarMeasureGroup, MeasurementSynchronize
 from fastlivo_tpu_torch.models.pipeline import LivoPipeline, ScanInput
 from fastlivo_tpu_torch.parallel.distributed import initialize_distributed
 from fastlivo_tpu_torch.utils import checkpoint as ckpt
+from fastlivo_tpu_torch.utils import timing
 from fastlivo_tpu_torch.utils.config import load_config
 from fastlivo_tpu_torch.utils.timing import StageTimer
 
@@ -131,12 +136,15 @@ def run_log(
 
     n_scans = 0
     t_start = time.perf_counter()
+    counts0 = timing.counters()
     with contextlib.ExitStack() as stack:
         if profile_dir is not None:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if pipe.device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             prof = stack.enter_context(torch.profiler.profile(activities=acts))
+            timing.enable(ranges=True)
+            stack.callback(timing.disable)
         for item in replay(log_path, cfg, pipe, timer):
             if item is None:
                 if max_scans is not None and n_scans >= max_scans:
@@ -174,7 +182,9 @@ def run_log(
                 # state matches the n_scans counter.
                 pipe.flush_scans()
                 ckpt.save_pipeline(checkpoint_path, pipe, meta={"n_scans": n_scans})
+    trace = None
     if profile_dir is not None:
+        trace = timing.drain()
         os.makedirs(profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
     wall = time.perf_counter() - t_start
@@ -184,6 +194,7 @@ def run_log(
             f"({wall / max(n_scans, 1) * 1e3:.1f} ms/scan incl. host) on {pipe.device}"
         )
         print(timer.report())
+        print(timing.report(trace, timing.counter_delta(timing.counters(), counts0), n_scans))
     pipe.finish(out_dir)
     if out_dir is not None and pipe.rank == 0:
         timer.write_csv(os.path.join(out_dir, "time_log.csv"))

@@ -14,6 +14,12 @@ import chip_smoke
 from fastlivo_tpu_torch.ops import image
 from fastlivo_tpu_torch.ops import pallas_windows as pw
 from fastlivo_tpu_torch.ops import patch_sample as ps
+from fastlivo_tpu_torch.utils import timing
+
+
+def _launches(kernel):
+    """The kernel wrapper's launch counter (utils.timing)."""
+    return timing.counters().get(f"{kernel}.launches", 0)
 
 
 @pytest.fixture
@@ -31,9 +37,9 @@ def test_kernel_matches_plain_and_counts_launches(cuda_device, win):
     origins = rng.integers(-60, [700, 560], size=(208, 2)).astype(np.int32)
     origins[:2] = [[-60, -60], [700, 560]]  # clipped on both sides
     o = torch.as_tensor(origins).to(cuda_device)
-    before = pw.LAUNCHES["extract_windows"]
+    before = _launches("extract_windows")
     got = image.extract_windows(img, o, win, 32)
-    assert pw.LAUNCHES["extract_windows"] == before + 1
+    assert _launches("extract_windows") == before + 1
     want = image.extract_windows(img.cpu(), o.cpu(), win, 32)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
@@ -66,9 +72,9 @@ def test_patch_sample_matches_plain_and_counts_launches(cuda_device, form):
     # The main-path forms on a rendered frame's padded pyramid, with
     # clamped, out-of-set and non-finite centers among the candidates.
     case, cpu_case = _cases(cuda_device, form)
-    before = ps.LAUNCHES["patch_sample"]
+    before = _launches("patch_sample")
     got = _as_tuple(case["kernel"]())
-    assert ps.LAUNCHES["patch_sample"] == before + 1
+    assert _launches("patch_sample") == before + 1
     want = _as_tuple(case["plain"]())
     torch.cuda.synchronize()
     for a, b in zip(got, want):
@@ -85,11 +91,11 @@ def test_patch_sample_levels_equal_per_level_launches(cuda_device):
     pyr, px = case["levels"], case["centers"][0]
     got = ps.patch_sample_levels(pyr, px, 12, chip_smoke.PS_PAD)
     ones = torch.ones(px.shape[0], dtype=torch.int32, device=cuda_device)
-    before = ps.LAUNCHES["patch_sample"]
+    before = _launches("patch_sample")
     for lvl, img in enumerate(pyr):
         one = ps.patch_sample(img, px / (1 << lvl), ones, 12, chip_smoke.PS_PAD, (1,))
         assert chip_smoke.same_bits(got[:, lvl].reshape(px.shape[0], -1), one), lvl
-    assert ps.LAUNCHES["patch_sample"] == before + len(pyr)
+    assert _launches("patch_sample") == before + len(pyr)
 
 
 class _Frame:
@@ -134,7 +140,7 @@ EDGE_CASES = [
 @pytest.mark.parametrize("n,n_levels,patch,grads", EDGE_CASES)
 def test_patch_sample_edges_match_plain(cuda_device, n, n_levels, patch, grads):
     pyr, c, s, gu = _edge_inputs(cuda_device, n, n_levels, grads, seed=n + 7 * patch + n_levels)
-    before = ps.LAUNCHES["patch_sample"]
+    before = _launches("patch_sample")
     if n_levels == 1:
         got = _as_tuple(ps.patch_sample(pyr[0], c, s, patch, chip_smoke.PS_PAD, grad_units=gu))
         want = _as_tuple(ps.patch_sample_plain(pyr[0], c, s, patch, chip_smoke.PS_PAD, grad_units=gu))
@@ -142,7 +148,7 @@ def test_patch_sample_edges_match_plain(cuda_device, n, n_levels, patch, grads):
         got = (ps.patch_sample_levels(pyr, c, patch, chip_smoke.PS_PAD),)
         want = (ps.patch_sample_levels_plain(pyr, c, patch, chip_smoke.PS_PAD),)
     torch.cuda.synchronize()
-    assert ps.LAUNCHES["patch_sample"] == before + (1 if n else 0)
+    assert _launches("patch_sample") == before + (1 if n else 0)
     for a, b in zip(got, want):
         assert a.shape == b.shape and a.is_contiguous()
         assert chip_smoke.same_bits(a, b)
@@ -166,10 +172,10 @@ def test_patch_sample_replays_in_a_cuda_graph(cuda_device, grads):
         call()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    before = ps.LAUNCHES["patch_sample"]
+    before = _launches("patch_sample")
     with torch.cuda.graph(graph):
         out = call()
-    assert ps.LAUNCHES["patch_sample"] == before + 1
+    assert _launches("patch_sample") == before + 1
     c.copy_(c2)
     graph.replay()
     want = _as_tuple(ps.patch_sample_plain(pyr[0], c2, s, 8, chip_smoke.PS_PAD, grad_units=gu))

@@ -239,17 +239,14 @@ def test_sources_never_import_the_jax_package():
 
 
 def test_cpu_call_leaves_launch_counter_at_zero():
-    from fastlivo_tpu_torch.ops import image, pallas_windows
+    from fastlivo_tpu_torch.ops import image
+    from fastlivo_tpu_torch.utils import timing
 
-    saved = pallas_windows.LAUNCHES["extract_windows"]
-    pallas_windows.LAUNCHES["extract_windows"] = 0
-    try:
-        img = torch.arange(40 * 50, dtype=torch.float32).reshape(40, 50)
-        out = image.extract_windows(img, torch.tensor([[-3, 2], [45, 30]], dtype=torch.int32), 9, 4)
-        assert out.shape == (2, 9, 9)
-        assert pallas_windows.LAUNCHES["extract_windows"] == 0
-    finally:
-        pallas_windows.LAUNCHES["extract_windows"] = saved
+    before = timing.counters()
+    img = torch.arange(40 * 50, dtype=torch.float32).reshape(40, 50)
+    out = image.extract_windows(img, torch.tensor([[-3, 2], [45, 30]], dtype=torch.int32), 9, 4)
+    assert out.shape == (2, 9, 9)
+    assert "extract_windows.launches" not in timing.counter_delta(timing.counters(), before)
 
 
 def test_chip_smoke_refuses_without_gpu_or_repo(tmp_path):

@@ -24,6 +24,7 @@ from fastlivo_tpu_torch.ops import image as T
 from fastlivo_tpu_torch.ops import patch_sample as TPS
 from fastlivo_tpu_torch.ops.camera import Pinhole as TPinhole
 from fastlivo_tpu_torch.state import NavState
+from fastlivo_tpu_torch.utils import timing
 
 torch.set_num_threads(1)
 
@@ -134,17 +135,13 @@ def test_levels_equal_per_level_calls_bitwise():
 
 
 def test_cpu_call_leaves_launch_counter_at_zero():
-    saved = TPS.LAUNCHES["patch_sample"]
-    TPS.LAUNCHES["patch_sample"] = 0
-    try:
-        img = torch.zeros((80, 80))
-        c = torch.full((3, 2), 40.0)
-        s = torch.ones(3, dtype=torch.int32)
-        T.strided_patch_sample(img, c, s, 8, PAD, grad_units=torch.ones(3))
-        TPS.patch_sample_levels([img, img[:60, :60].contiguous()], c, 12, PAD)
-        assert TPS.LAUNCHES["patch_sample"] == 0
-    finally:
-        TPS.LAUNCHES["patch_sample"] = saved
+    before = timing.counters()
+    img = torch.zeros((80, 80))
+    c = torch.full((3, 2), 40.0)
+    s = torch.ones(3, dtype=torch.int32)
+    T.strided_patch_sample(img, c, s, 8, PAD, grad_units=torch.ones(3))
+    TPS.patch_sample_levels([img, img[:60, :60].contiguous()], c, 12, PAD)
+    assert "patch_sample.launches" not in timing.counter_delta(timing.counters(), before)
 
 
 def test_wrapper_rejects_bad_inputs():

@@ -30,9 +30,8 @@ from fastlivo_tpu_torch.maps import visual_map as TVM
 from fastlivo_tpu_torch.maps import voxel_map as TV
 from fastlivo_tpu_torch.models import lio as TL
 from fastlivo_tpu_torch.models import pipeline as TP
-from fastlivo_tpu_torch.ops import pallas_windows as TPW
-from fastlivo_tpu_torch.ops import patch_sample as TPS
 from fastlivo_tpu_torch.ops.camera import Pinhole as TPinhole
+from fastlivo_tpu_torch.utils import timing
 
 torch.set_num_threads(1)
 
@@ -50,6 +49,11 @@ TCFG = TP.StepConfig(
     cam=TPinhole(320, 256, 200.0, 200.0, 160.0, 128.0),
     vm_cfg=TVM.VisualMapConfig(capacity=1024, max_obs=4),
 )
+
+
+def _launches(kernel):
+    """The kernel wrapper's launch counter (utils.timing)."""
+    return timing.counters().get(f"{kernel}.launches", 0)
 
 
 def _jscan(d):
@@ -95,7 +99,7 @@ def runs():
     tm = TP.bootstrap_map(TV.make_map(TCFG.map_cfg, device=dev), scene_mod.to_scan_input(boot, dev), ts, ti3, tz3, TCFG)
     tv = TVM.make_visual_map(TCFG.vm_cfg, device=dev)
     tout = []
-    launches = (TPW.LAUNCHES["extract_windows"], TPS.LAUNCHES["patch_sample"])
+    before = (_launches("extract_windows"), _launches("patch_sample"))
     for (ls, vw, _), img in zip(pairs, frames):
         ts, tm, _, (wc, wm), lsum = TP.lio_scan_step(ts, tm, scene_mod.to_scan_input(ls, dev), ti3, tz3, TCFG)
         ts, tv, _, vsum = TP.vio_scan_step(
@@ -103,7 +107,7 @@ def runs():
         )
         tout.append((lsum.numpy(), vsum.numpy()))
     # CPU tensors never launch a kernel
-    assert (TPW.LAUNCHES["extract_windows"], TPS.LAUNCHES["patch_sample"]) == launches
+    assert (_launches("extract_windows"), _launches("patch_sample")) == before
     tmaps = (convert.voxel_map_to_numpy(tm), convert.visual_map_to_numpy(tv))
     return jout, tout, jmaps, tmaps
 
