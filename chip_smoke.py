@@ -18,6 +18,9 @@ result line without a CUDA device):
    configs/mars_lvig_gnss.yaml's camera. Each call must be one launch.
    Then the wrapper's host cost split by stage at N = 208
    (time.perf_counter_ns per stage of `ops/patch_sample._launch`).
+   `imu_propagate` (`models.imu.propagate`) against `propagate_plain` at
+   the cell's window (M = 128, 21 valid samples) in float64 and float32,
+   within `IMU_RTOL` of each output's largest magnitude, one launch a call.
 2. LIVO: bootstrap_map, then lio_scan_step (surfel) + vio_scan_step pairs
    at the flagship sizes (81,920 raw points, 65,536 budget, 2^18 arena,
    640x512 camera) on a periodic circular room trajectory with matching
@@ -439,6 +442,116 @@ def phase_kernels(device):
                 row["bound_ms"] = moved / HBM_BYTES_PER_S * 1e3
                 row["bound_2nw2_ms"] = 2.0 * n * win * win * 4 / HBM_BYTES_PER_S * 1e3
                 rows.append(row)
+    return rows, phase_imu(device)
+
+
+# IMU propagation (models/imu.py): the window of imu.imu_int_frame as
+# shipped, filled as a 10 Hz sweep of 200 Hz IMU fills it in
+# avia_lio_f64.handheld_room, and at the edges.
+IMU_M = 128
+IMU_VALID = (1, 2, 21, 128)
+IMU_CELL_VALID = 21
+# case name -> (state dtype, window dtype), the kernel's three kinds
+IMU_DTYPES = {"f32": ("float32", "float32"), "f64": ("float64", "float64"),
+              "f64_w32": ("float64", "float32")}
+# Kernel against propagate_plain on the card, as a share of each output's
+# largest magnitude: the two sum every 3x3 and 18x18 product in another
+# order (cuBLAS against the kernel's FMAs) through up to 127 chained
+# intervals, so they agree to the state dtype's rounding times the chain.
+IMU_RTOL = {"float32": 1e-5, "float64": 1e-12}
+
+
+def imu_case(device, n_valid, kind="f64", bias=True, seed=0, m=IMU_M):
+    """A window as `io.sync.WindowBuilder` fills it (n_valid samples at
+    200 Hz, the padded tail repeating the last stamp with zero rates and
+    mask False) and a state to propagate through it, on `device`: (state,
+    window, t_end, acc_scale) for `models.imu.propagate`."""
+    import torch
+
+    from fastlivo_tpu_torch.models.imu import ImuWindow
+    from fastlivo_tpu_torch.state import NavState
+
+    sdt, wdt = (getattr(torch, d) for d in IMU_DTYPES[kind])
+    rng = np.random.default_rng(seed)
+    stamps = np.zeros(m)
+    stamps[:n_valid] = 0.0013 + 0.005 * np.arange(n_valid)
+    stamps[n_valid:] = stamps[n_valid - 1]
+    gyr = np.zeros((m, 3))
+    acc = np.zeros((m, 3))
+    gyr[:n_valid] = rng.normal(size=(n_valid, 3)) * 0.8
+    acc[:n_valid] = rng.normal(size=(n_valid, 3)) * 1.5 + [0.3, -0.2, 9.81]
+    a = rng.normal(size=(18, 18))
+    b = 1.0 if bias else 0.0
+    st = NavState(
+        rot=_rotvec(rng.normal(size=3)), pos=rng.normal(size=3) * 3.0, vel=rng.normal(size=3),
+        bg=rng.normal(size=3) * 0.02 * b, ba=rng.normal(size=3) * 0.1 * b,
+        grav=np.array([0.05, -0.03, -9.81]), cov=a @ a.T * 1e-5 + np.eye(18) * 1e-4,
+    )
+    state = NavState(*(torch.as_tensor(x, dtype=sdt, device=device) for x in st))
+    window = ImuWindow(
+        stamps=torch.as_tensor(stamps, dtype=wdt, device=device),
+        gyr=torch.as_tensor(gyr, dtype=wdt, device=device),
+        acc=torch.as_tensor(acc, dtype=wdt, device=device),
+        mask=torch.as_tensor(np.arange(m) < n_valid, device=device),
+    )
+    t_end = torch.tensor(stamps[n_valid - 1] + 0.0021, dtype=wdt, device=device)
+    return state, window, t_end, torch.tensor(0.98, dtype=wdt, device=device)
+
+
+def imu_errors(got, want):
+    """Per output (the new state's fields, then the pose table's), the
+    largest difference as a share of the largest magnitude in `want`."""
+    import torch
+
+    out = {}
+    for prefix, g, w in (("state", got[0], want[0]), ("poses", got[1], want[1])):
+        for name, a, b in zip(g._fields, g, w):
+            scale = max(float(b.abs().max()), torch.finfo(b.dtype).tiny)
+            out[f"{prefix}.{name}"] = float((a - b).abs().max()) / scale
+    return out
+
+
+def imu_propagate_bytes(state, window):
+    """Least bytes one propagation moves: the state and window read once,
+    the new state's rot, pos, vel, cov and the 5 x M pose rows written once."""
+    m = window.stamps.shape[0]
+    t, w = state.pos.element_size(), window.stamps.element_size()
+    return (9 + 15 + 324) * t + (7 * m + 2) * w + m + (339 + 21 * m) * t
+
+
+def phase_imu(device):
+    """`models.imu.propagate` (one kernel launch) against `propagate_plain`
+    on the card at the cell's window (M = 128, 21 valid) in float64 and
+    float32: the relative errors, then both timed (graphed device time and
+    eager per-call time), the byte bound and the launches."""
+    import torch
+
+    from fastlivo_tpu_torch.models import imu
+
+    rows = []
+    for kind in ("f64", "f32"):
+        args = imu_case(device, IMU_CELL_VALID, kind)
+        fns = dict(kernel=lambda: imu.propagate(*args), plain=lambda: imu.propagate_plain(*args))
+        before = read_launches()["imu_propagate"]
+        got = fns["kernel"]()
+        if read_launches()["imu_propagate"] != before + 1:
+            raise AssertionError(f"imu_propagate {kind}: not one launch")
+        want = fns["plain"]()
+        torch.cuda.synchronize()
+        errs = imu_errors(got, want)
+        tol = IMU_RTOL[IMU_DTYPES[kind][0]]
+        if max(errs.values()) > tol:
+            raise AssertionError(f"imu_propagate {kind}: {errs} above {tol}")
+        n_steps = int((args[1].stamps[1:] > args[1].stamps[:-1]).sum())
+        row = dict(kind=kind, m=IMU_M, n_valid=IMU_CELL_VALID, max_rel_err=max(errs.values()),
+                   rel_err=errs, cov_steps=n_steps, dependent_fmas=n_steps * 2 * 18,
+                   bytes=imu_propagate_bytes(args[0], args[1]))
+        row["kernel_ms"] = graph_time_ms(fns["kernel"])
+        row["kernel_eager_ms"] = eager_time_ms(fns["kernel"])
+        row["plain_ms"] = graph_time_ms(fns["plain"], iters=2, reps=5)
+        row["plain_eager_ms"] = eager_time_ms(fns["plain"], iters=10, warmup=2)
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        rows.append(row)
     return rows
 
 
@@ -690,7 +803,7 @@ def phase_patch_sample(device):
     return rows, split
 
 
-KERNELS = ("extract_windows", "patch_sample")  # the wrappers' `<kernel>.launches` counters
+KERNELS = ("extract_windows", "imu_propagate", "patch_sample")  # the wrappers' `<kernel>.launches` counters
 _LAUNCH_BASE = {}  # the counters at the last reset_launches
 
 
@@ -941,6 +1054,9 @@ def phase_livo(device, n_warm=3, n_timed=20, n_profile=2):
         raise AssertionError(f"patch_sample launched {n_ps} times in {len(timed)} frames")
     if launches["extract_windows"] != 0:
         raise AssertionError(f"extract_windows launched {launches['extract_windows']} times")
+    # One propagation in each LIO and each VIO step.
+    if launches["imu_propagate"] != 2 * len(timed):
+        raise AssertionError(f"imu_propagate launched {launches['imu_propagate']} times in {len(timed)} pairs")
 
     prof = profile_pairs(run, extra[:n_profile])
     syncs = count_syncs(run, extra[n_profile])
@@ -2357,7 +2473,7 @@ def job_p7_world1(device, backend):
     lookup_bitwise = all(same_bits(a.float(), b.float()) for a, b in zip(lk1, lk2))
     mesh.axis.counts.clear()
     recs = {k: [] for k in runs}
-    launches = {"patch_sample": 0, "extract_windows": 0}
+    launches = {k: 0 for k in KERNELS}
     collectives = {}
     for i in range(P7_PAIRS):
         for k, run in runs.items():
@@ -3091,7 +3207,7 @@ def main(argv=None):
                       "native_build_s": time.perf_counter() - t0,
                       "native_library": os.path.basename(host_lib._name)}), flush=True)
 
-    k1 = phase_kernels(device)
+    k1, imu_rows = phase_kernels(device)
     psr, ps_split = phase_patch_sample(device)
     print(json.dumps({"patch_sample_host_ns": ps_split, "n": PS_SPLIT_N, "gpu": ident}), flush=True)
 
@@ -3193,6 +3309,23 @@ def main(argv=None):
             library_us=r["library_ms"] * 1e3, bound_us=r["bound_ms"] * 1e3,
             eager_us=dict(kernel=r["kernel_eager_ms"] * 1e3, plain=r["plain_eager_ms"] * 1e3,
                           library=r["library_eager_ms"] * 1e3),
+        ))
+    for r in imu_rows:
+        kernels.append(dict(
+            name="imu_propagate", route="cuda",
+            source="fastlivo_tpu_torch/csrc/imu_propagate.cu",
+            replaces="fastlivo_tpu/models/imu.py:57 (lax.scan; no Pallas kernel)",
+            launches=livo["launches"]["imu_propagate"], on_main_path=True,
+            launches_cli=cli_launches["imu_propagate"],
+            launches_5b=gnss_launches["imu_propagate"],
+            launches_6a=bag_launches["imu_propagate"],
+            launches_7=p7_launches["imu_propagate"],
+            launches_8=p8_launches["imu_propagate"],
+            max_rel_err=r["max_rel_err"], kind=r["kind"], m=r["m"], n_valid=r["n_valid"],
+            cov_steps=r["cov_steps"], dependent_fmas=r["dependent_fmas"],
+            ms=r["kernel_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by="dependent chain",
+            kernel_us=r["kernel_ms"] * 1e3, plain_us=r["plain_ms"] * 1e3, bound_bytes_us=r["bound_ms"] * 1e3,
+            eager_us=dict(kernel=r["kernel_eager_ms"] * 1e3, plain=r["plain_eager_ms"] * 1e3),
         ))
     if args.out:
         with open(args.out, "w") as f:

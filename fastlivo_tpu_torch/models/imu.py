@@ -1,23 +1,30 @@
 """IMU forward propagation and point undistortion (port of
 fastlivo_tpu/models/imu.py).
 
-The JAX `lax.scan` over the window becomes a Python loop over the M-1
-intervals. Everything that does not depend on the loop carry (the interval
-exponentials, the transition blocks once the rotation chain is known) is
-computed batched around it, so the loop itself is a few small kernels per
-sample: the rotation chain, the covariance recursion and the
-position/velocity recursion, each in the JAX order of operations.
+`propagate` computes the JAX `lax.scan` over the window in one CUDA kernel
+for CUDA tensors (`fastlivo_tpu_torch/csrc/imu_propagate.cu`, see the note
+there for its design and bound) and with `propagate_plain` for CPU tensors;
+there is no fallback between the two. In `propagate_plain` the scan is a
+Python loop over the M-1 intervals. Everything that does not depend on the
+loop carry (the interval exponentials, the transition blocks once the
+rotation chain is known) is computed batched around it, so the loop itself
+is a few small kernels per sample: the rotation chain, the covariance
+recursion and the position/velocity recursion, each in the JAX order of
+operations. It is pure torch on any device, so on the card it is the
+kernel's reference.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
-from fastlivo_tpu_torch.ops import so3
+from fastlivo_tpu_torch.ops import cuda_build, so3
 from fastlivo_tpu_torch.state import DIM_STATE, GRAVITY_MS2, NavState
+from fastlivo_tpu_torch.utils import timing
 
 
 class ImuWindow(NamedTuple):
@@ -46,7 +53,7 @@ def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return torch.index_select(x, 0, i.reshape(1))[0]
 
 
-def propagate(
+def propagate_plain(
     state: NavState,
     window: ImuWindow,
     t_end: torch.Tensor,
@@ -141,6 +148,126 @@ def propagate(
         cov=cov,
     )
     return new_state, poses
+
+
+# (state dtype, window dtype) -> the C entry point's `kind`.
+_KINDS = {
+    (torch.float32, torch.float32): 0,
+    (torch.float64, torch.float64): 1,
+    (torch.float64, torch.float32): 2,
+}
+# Longest window the kernel takes: its shared memory, (13 (M-1) + 12 M +
+# 1296) elements of the state's dtype and 4 (M-1) bytes, within the 227 KB
+# a Hopper block may use (219,156 bytes in float64 at M = 1024).
+MAX_WINDOW = 1024
+_STATE_OUT = 15 + DIM_STATE * DIM_STATE  # rot, pos, vel, cov ahead of the pose table
+
+_FN = None
+
+
+def _kernel_fn():
+    """The C entry point `imu_propagate` (csrc/imu_propagate.cu), built and
+    loaded at first use, with its argument types set."""
+    global _FN
+    if _FN is None:
+        fn = cuda_build.load("imu_propagate").imu_propagate
+        fn.argtypes = (
+            [ctypes.c_int]  # kind
+            + [ctypes.c_void_p] * 13  # rot, pos, vel, bg, ba, grav, cov, stamps, gyr, acc, mask, t_end, acc_scale
+            + [ctypes.c_int]  # m
+            + [ctypes.c_double] * 4  # cov_gyr, cov_acc, cov_bias_gyr, cov_bias_acc
+            + [ctypes.c_void_p] * 2  # out, stream
+        )
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def _check(state: NavState, window: ImuWindow, t_end: torch.Tensor, acc_scale: torch.Tensor) -> int:
+    """The kernel's `kind` for these inputs; raises ValueError on what the
+    kernel does not take: a dtype pair outside `_KINDS`, a shape other than
+    NavState's and ImuWindow's, a window outside [2, MAX_WINDOW], a tensor
+    on another device than state.pos, or one not contiguous."""
+    dtype, wdtype = state.pos.dtype, window.stamps.dtype
+    kind = _KINDS.get((dtype, wdtype))
+    if kind is None:
+        raise ValueError(f"imu_propagate: state {dtype} with window {wdtype} is not supported")
+    m = window.stamps.shape[0] if window.stamps.dim() == 1 else 0
+    if not 2 <= m <= MAX_WINDOW:
+        raise ValueError(f"imu_propagate: window stamps must be (M,), 2 <= M <= {MAX_WINDOW}, "
+                         f"got {tuple(window.stamps.shape)}")
+    v3 = (3,)
+    expect = (
+        ("rot", state.rot, (3, 3), dtype), ("pos", state.pos, v3, dtype), ("vel", state.vel, v3, dtype),
+        ("bg", state.bg, v3, dtype), ("ba", state.ba, v3, dtype), ("grav", state.grav, v3, dtype),
+        ("cov", state.cov, (DIM_STATE, DIM_STATE), dtype), ("stamps", window.stamps, (m,), wdtype),
+        ("gyr", window.gyr, (m, 3), wdtype), ("acc", window.acc, (m, 3), wdtype),
+        ("mask", window.mask, (m,), torch.bool), ("t_end", t_end, (), wdtype),
+        ("acc_scale", acc_scale, (), wdtype),
+    )
+    dev = state.pos.device
+    for name, t, shape, want in expect:
+        if t.shape != shape or t.dtype != want:
+            raise ValueError(f"imu_propagate: {name} must be {shape} {want}, got {tuple(t.shape)} {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"imu_propagate: {name} is on {t.device}, state.pos on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"imu_propagate: {name} must be contiguous")
+    return kind
+
+
+def _launch(state, window, t_end, acc_scale, cov_gyr, cov_acc, cov_bias_gyr, cov_bias_acc):
+    """One kernel launch on the current stream for CUDA inputs: the new
+    state and the pose table as views of one output buffer (the state's
+    bg, ba, grav and the window's stamps are the inputs themselves, as in
+    propagate_plain)."""
+    kind = _check(state, window, t_end, acc_scale)
+    dev = state.pos.get_device()
+    if dev != torch.cuda.current_device():
+        raise ValueError(f"imu_propagate: inputs on cuda:{dev}, current device cuda:{torch.cuda.current_device()}")
+    m = window.stamps.shape[0]
+    out = torch.empty(_STATE_OUT + 21 * m, dtype=state.pos.dtype, device=state.pos.device)
+    err = _kernel_fn()(
+        kind, state.rot.data_ptr(), state.pos.data_ptr(), state.vel.data_ptr(), state.bg.data_ptr(),
+        state.ba.data_ptr(), state.grav.data_ptr(), state.cov.data_ptr(), window.stamps.data_ptr(),
+        window.gyr.data_ptr(), window.acc.data_ptr(), window.mask.data_ptr(), t_end.data_ptr(),
+        acc_scale.data_ptr(), m, cov_gyr, cov_acc, cov_bias_gyr, cov_bias_acc, out.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev),
+    )
+    if err != 0:
+        raise RuntimeError(f"imu_propagate kernel launch failed: cudaError {err}")
+    timing.count("imu_propagate.launches")  # one per launch
+    rot, pos, vel, cov, p_rot, p_pos, p_vel, p_acc, p_gyr = torch.split(
+        out, (9, 3, 3, DIM_STATE * DIM_STATE, 9 * m, 3 * m, 3 * m, 3 * m, 3 * m)
+    )
+    new_state = NavState(
+        rot=rot.view(3, 3), pos=pos, vel=vel, bg=state.bg, ba=state.ba, grav=state.grav,
+        cov=cov.view(DIM_STATE, DIM_STATE),
+    )
+    poses = ImuPoses(
+        stamps=window.stamps, rot=p_rot.view(m, 3, 3), pos=p_pos.view(m, 3), vel=p_vel.view(m, 3),
+        acc_w=p_acc.view(m, 3), gyr_b=p_gyr.view(m, 3),
+    )
+    return new_state, poses
+
+
+def propagate(
+    state: NavState,
+    window: ImuWindow,
+    t_end: torch.Tensor,
+    acc_scale: torch.Tensor,
+    cov_gyr: float = 0.01,
+    cov_acc: float = 0.01,
+    cov_bias_gyr: float = 1e-4,
+    cov_bias_acc: float = 1e-4,
+) -> Tuple[NavState, ImuPoses]:
+    """Propagate nominal state + covariance through the IMU window to t_end:
+    one kernel launch for CUDA tensors, `propagate_plain` for CPU tensors."""
+    if state.pos.is_cuda:
+        return _launch(state, window, t_end, acc_scale, cov_gyr, cov_acc, cov_bias_gyr, cov_bias_acc)
+    if state.pos.device.type == "cpu":
+        return propagate_plain(state, window, t_end, acc_scale, cov_gyr, cov_acc, cov_bias_gyr, cov_bias_acc)
+    raise ValueError(f"propagate: unsupported device {state.pos.device}")
 
 
 def undistort(

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import chip_smoke
+from fastlivo_tpu_torch.models import imu
 from fastlivo_tpu_torch.ops import image
 from fastlivo_tpu_torch.ops import pallas_windows as pw
 from fastlivo_tpu_torch.ops import patch_sample as ps
@@ -279,3 +280,97 @@ def test_graphed_training_equals_eager(cuda_device):
     lg_ds = tm.build_lg_dataset(ds, convert.superpoint_from_numpy(spl.init_superpoint(0), device=cuda_device))
     cmp = chip_smoke.graphed_vs_eager(cuda_device, ds, lg_ds, int(n_valid), 8, 4)
     assert not chip_smoke.graph_failures(cmp), cmp
+
+
+def _imu_tol(kind):
+    """chip_smoke.IMU_RTOL for the case's state dtype: the kernel and
+    propagate_plain sum each product in another order through up to 127
+    chained intervals (float64 near 1e-12 of each output's largest value)."""
+    return chip_smoke.IMU_RTOL[chip_smoke.IMU_DTYPES[kind][0]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("n_valid", chip_smoke.IMU_VALID)
+@pytest.mark.parametrize("kind", sorted(chip_smoke.IMU_DTYPES))
+def test_imu_propagate_matches_plain_and_counts_launches(cuda_device, kind, n_valid, bias):
+    args = chip_smoke.imu_case(cuda_device, n_valid, kind, bias, seed=n_valid)
+    before = _launches("imu_propagate")
+    got = imu.propagate(*args)
+    assert _launches("imu_propagate") == before + 1
+    want = imu.propagate_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        assert a.shape == b.shape and a.dtype == b.dtype and a.device == b.device
+    errs = chip_smoke.imu_errors(got, want)
+    assert max(errs.values()) <= _imu_tol(kind), errs
+    # bg, ba, grav and the stamps are the inputs themselves, as in the plain version.
+    assert got[0].bg is args[0].bg and got[0].grav is args[0].grav and got[1].stamps is args[1].stamps
+    # Padded slots are exact copies of the last valid one; a window with no
+    # interval leaves the covariance as it was, bit for bit.
+    poses = got[1]
+    for table in (poses.rot, poses.pos, poses.vel):
+        assert torch.equal(table[n_valid:], table[n_valid - 1].expand_as(table[n_valid:]))
+    if n_valid == 1:
+        assert torch.equal(got[0].cov, args[0].cov)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "f64"])
+def test_imu_propagate_longest_window(cuda_device, kind):
+    """imu.MAX_WINDOW slots, most of them valid: the launch that needs
+    more than 48 KB of shared memory (224 KB in float64)."""
+    args = chip_smoke.imu_case(cuda_device, imu.MAX_WINDOW - 24, kind, m=imu.MAX_WINDOW)
+    got = imu.propagate(*args)
+    want = imu.propagate_plain(*args)
+    torch.cuda.synchronize()
+    errs = chip_smoke.imu_errors(got, want)
+    assert max(errs.values()) <= _imu_tol(kind), errs
+
+
+@pytest.mark.cuda
+def test_imu_propagate_replays_in_a_cuda_graph(cuda_device):
+    """One propagation captured in a CUDA graph, then replayed on a new
+    state and window copied into the captured inputs: the replay equals
+    propagate_plain of the new inputs within the kernel's tolerance."""
+    args = chip_smoke.imu_case(cuda_device, 21, "f64", seed=3)
+    new = chip_smoke.imu_case(cuda_device, 21, "f64", seed=4)
+
+    def call():
+        return imu.propagate(*args)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = _launches("imu_propagate")
+    with torch.cuda.graph(graph):
+        out = call()
+    assert _launches("imu_propagate") == before + 1
+    for dst, src in zip(args[0] + args[1] + args[2:], new[0] + new[1] + new[2:]):
+        dst.copy_(src)
+    graph.replay()
+    want = imu.propagate_plain(*new)
+    torch.cuda.synchronize()
+    errs = chip_smoke.imu_errors(out, want)
+    assert max(errs.values()) <= _imu_tol("f64"), errs
+
+
+@pytest.mark.cuda
+def test_imu_propagate_rejects_bad_inputs(cuda_device):
+    st, win, t_end, sc = chip_smoke.imu_case(cuda_device, 21, "f64")
+    bad = [
+        (st._replace(cov=st.cov.float()), win, t_end, sc),  # dtype
+        (st, win._replace(stamps=win.stamps.float()), t_end, sc),  # window dtypes differ
+        (st, win._replace(gyr=win.gyr[:, :2].contiguous()), t_end, sc),  # shape
+        (st, win, t_end.reshape(1), sc),  # t_end not 0-d
+        (st._replace(rot=st.rot.T), win, t_end, sc),  # not contiguous
+        (st, win, t_end.cpu(), sc),  # two devices
+    ]
+    before = _launches("imu_propagate")
+    for args in bad:
+        with pytest.raises(ValueError):
+            imu.propagate(*args)
+    assert _launches("imu_propagate") == before

@@ -6,12 +6,15 @@ of LAPACK (rtol 1e-4); the closed-form eigenpair repeats the JAX formula
 (rtol 1e-4 on eigenvalues of unit-scale matrices, normals up to sign
 never flip since the same row cross product wins); propagation chains 31
 intervals of 3x3 products (atol 1e-5 on metres and radians, 1e-6 on the
-covariance whose entries are ~1e-4).
+covariance whose entries are ~1e-4); the windows the window builder fills
+(128 slots, a valid prefix) chain up to 127 intervals and hold the same
+tolerances.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from fastlivo_tpu.models import ieskf as JK
@@ -23,6 +26,7 @@ from fastlivo_tpu_torch.models import ieskf as TK
 from fastlivo_tpu_torch.models import imu as TI
 from fastlivo_tpu_torch.ops import linalg as TL
 from fastlivo_tpu_torch.state import NavState as TNav
+from fastlivo_tpu_torch.utils import timing
 
 torch.set_num_threads(1)
 
@@ -79,17 +83,27 @@ def test_map_step_and_posterior_cov():
     np.testing.assert_allclose(c_t, c_j, rtol=1e-3, atol=1e-12)
 
 
-def _imu_case(seed, m=32):
+def _imu_case(seed, m=32, n_valid=None):
+    """A window with the last three slots masked (n_valid None), or a
+    masked-prefix window as `io.sync.WindowBuilder` fills it: n_valid
+    samples at 200 Hz, the tail repeating the last stamp with zero rates."""
     rng = np.random.default_rng(seed)
-    stamps = np.linspace(0.0, 0.1, m).astype(np.float32)
-    mask = np.ones(m, bool)
-    mask[-3:] = False  # padded tail: zero-dt no-ops
-    win = dict(
-        stamps=stamps,
-        gyr=(rng.normal(size=(m, 3)) * 0.3).astype(np.float32),
-        acc=(rng.normal(size=(m, 3)) * 0.5 + [0.0, 0.0, 9.81]).astype(np.float32),
-        mask=mask,
-    )
+    if n_valid is None:
+        stamps = np.linspace(0.0, 0.1, m).astype(np.float32)
+        mask = np.ones(m, bool)
+        mask[-3:] = False  # padded tail: zero-dt no-ops
+        gyr = (rng.normal(size=(m, 3)) * 0.3).astype(np.float32)
+        acc = (rng.normal(size=(m, 3)) * 0.5 + [0.0, 0.0, 9.81]).astype(np.float32)
+    else:
+        stamps = np.zeros(m, np.float32)
+        stamps[:n_valid] = 0.0013 + 0.1 / 128 * np.arange(n_valid)
+        stamps[n_valid:] = stamps[n_valid - 1]
+        mask = np.arange(m) < n_valid
+        gyr = np.zeros((m, 3), np.float32)
+        acc = np.zeros((m, 3), np.float32)
+        gyr[:n_valid] = rng.normal(size=(n_valid, 3)) * 0.3
+        acc[:n_valid] = rng.normal(size=(n_valid, 3)) * 0.5 + [0.0, 0.0, 9.81]
+    win = dict(stamps=stamps, gyr=gyr, acc=acc, mask=mask)
     a = rng.normal(size=(18, 18))
     st = dict(
         rot=np.asarray(JSO3.exp(jnp.asarray(rng.normal(size=3).astype(np.float32)))),
@@ -103,8 +117,8 @@ def _imu_case(seed, m=32):
     return st, win
 
 
-def _propagate_both(seed):
-    st, win = _imu_case(seed)
+def _propagate_both(seed, m=32, n_valid=None):
+    st, win = _imu_case(seed, m, n_valid)
     t_end, acc_scale = np.float32(0.1), np.float32(0.98)
     j_state, j_poses = jax.jit(JI.propagate)(
         JNav(**{k: jnp.asarray(v) for k, v in st.items()}),
@@ -119,13 +133,82 @@ def _propagate_both(seed):
     return (j_state, j_poses), (t_state, t_poses)
 
 
-def test_propagate():
-    (j_state, j_poses), (t_state, t_poses) = _propagate_both(6)
+@pytest.mark.parametrize("m,n_valid", [(32, None), (128, 1), (128, 21), (128, 128)])
+def test_propagate(m, n_valid):
+    (j_state, j_poses), (t_state, t_poses) = _propagate_both(6, m, n_valid)
     for name, g, w in zip(TNav._fields, t_state, j_state):
         atol = 1e-6 if name == "cov" else 1e-5
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=atol, err_msg=name)
     for name, g, w in zip(TI.ImuPoses._fields, t_poses, j_poses):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+def _launches():
+    return timing.counters().get("imu_propagate.launches", 0)
+
+
+def test_propagate_on_the_cpu_is_the_plain_path():
+    st, win = _imu_case(9, 128, 21)
+    args = (
+        TNav(**{k: torch.from_numpy(v) for k, v in st.items()}),
+        TI.ImuWindow(**{k: torch.from_numpy(v) for k, v in win.items()}),
+        torch.tensor(np.float32(0.1)), torch.tensor(np.float32(0.98)),
+    )
+    before = _launches()
+    got = TI.propagate(*args)
+    assert _launches() == before
+    want = TI.propagate_plain(*args)
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(g, w)
+
+
+def _kernel_inputs(state_dtype=torch.float64, window_dtype=torch.float64, m=128):
+    st, win = _imu_case(10, m, min(21, m))
+    state = TNav(**{k: torch.tensor(v, dtype=state_dtype) for k, v in st.items()})
+    window = TI.ImuWindow(**{k: torch.as_tensor(v, dtype=None if k == "mask" else window_dtype)
+                             for k, v in win.items()})
+    return state, window, torch.tensor(0.1, dtype=window_dtype), torch.tensor(0.98, dtype=window_dtype)
+
+
+@pytest.mark.parametrize("state_dtype,window_dtype,kind", [
+    (torch.float32, torch.float32, 0), (torch.float64, torch.float64, 1), (torch.float64, torch.float32, 2),
+])
+def test_kernel_check_accepts_its_kinds(state_dtype, window_dtype, kind):
+    assert TI._check(*_kernel_inputs(state_dtype, window_dtype)) == kind
+
+
+BAD_INPUTS = (
+    "f32 state, f64 window", "f16 window", "t_end f32", "t_end (1,)", "mask uint8", "gyr (M, 4)",
+    "cov (17, 17)", "rot transposed", "one sample", "window above MAX_WINDOW", "stamps (M, 1)",
+)
+
+
+def _bad_inputs():
+    """What the kernel's wrapper must reject, by name (CPU tensors; the
+    checks are the ones the CUDA path makes before the launch)."""
+    st, win, t_end, sc = _kernel_inputs()
+    return {
+        "f32 state, f64 window": (TNav(*(x.float() for x in st)), win, t_end, sc),
+        "f16 window": (st, TI.ImuWindow(win.stamps.half(), win.gyr.half(), win.acc.half(), win.mask),
+                       t_end.half(), sc.half()),
+        "t_end f32": (st, win, t_end.float(), sc),
+        "t_end (1,)": (st, win, t_end.reshape(1), sc),
+        "mask uint8": (st, win._replace(mask=win.mask.to(torch.uint8)), t_end, sc),
+        "gyr (M, 4)": (st, win._replace(gyr=torch.zeros(128, 4, dtype=torch.float64)), t_end, sc),
+        "cov (17, 17)": (st._replace(cov=st.cov[:17, :17].contiguous()), win, t_end, sc),
+        "rot transposed": (st._replace(rot=st.rot.T), win, t_end, sc),
+        "one sample": _kernel_inputs(m=1),
+        "window above MAX_WINDOW": _kernel_inputs(m=TI.MAX_WINDOW + 1),
+        "stamps (M, 1)": (st, win._replace(stamps=win.stamps[:, None]), t_end, sc),
+    }
+
+
+@pytest.mark.parametrize("case", BAD_INPUTS)
+def test_kernel_check_rejects(case):
+    bad = _bad_inputs()
+    assert set(bad) == set(BAD_INPUTS)
+    with pytest.raises(ValueError):
+        TI._check(*bad[case])
 
 
 def test_undistort():
