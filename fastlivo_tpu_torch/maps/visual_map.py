@@ -123,7 +123,15 @@ def add_observations(
 def closest_view_obs(
     m: VisualMap, idx: torch.Tensor, cam_pos: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Best observation per point by viewing-angle cosine (reject cos <= 0.5)."""
+    """Best observation per point: the one seen from the direction closest
+    to the current view, rejected at a viewing angle of 60 degrees or more
+    (cos <= 0.5).
+
+    Directions are compared by the squared chord between the unit view
+    vectors, |a - b|^2 = 2 - 2 cos, not by the cosine: a rig that passes
+    the same place again sees a point from directions 1e-4 rad apart,
+    whose float32 cosines all round to 1 and tie, while their chords keep
+    the order."""
     idx = idx.long()
     pts = m.pos[idx]
     view = cam_pos - pts
@@ -131,11 +139,11 @@ def closest_view_obs(
     obs_c = obs_cam_pos(m.obs_rcw[idx], m.obs_pcw[idx])
     od = obs_c - pts[:, None, :]
     od = od / (torch.linalg.vector_norm(od, dim=-1, keepdim=True) + 1e-9)
-    cos = torch.sum(od * view[:, None, :], dim=-1)
-    cos = torch.where(m.obs_valid[idx], cos, -2.0)
-    best = torch.argmax(cos, dim=-1)
-    best_cos = torch.gather(cos, 1, best[:, None])[:, 0]
-    return best, best_cos > 0.5
+    chord2 = torch.sum((od - view[:, None, :]) ** 2, dim=-1)
+    chord2 = torch.where(m.obs_valid[idx], chord2, 5.0)
+    best = torch.argmin(chord2, dim=-1)
+    best_chord2 = torch.gather(chord2, 1, best[:, None])[:, 0]
+    return best, best_chord2 < 1.0
 
 
 def num_active(m: VisualMap) -> torch.Tensor:

@@ -278,18 +278,26 @@ def undistort(
     state_end: NavState,
     rot_il: torch.Tensor,
     t_il: torch.Tensor,
+    imu_mask: torch.Tensor,
 ) -> torch.Tensor:
     """Motion-compensate LiDAR points to the window-end LiDAR frame: each
-    point finds its bracketing IMU pose by `searchsorted` and applies the
-    constant-acceleration interpolation."""
-    m = poses.stamps.shape[0]
-    idx = torch.clamp(
-        torch.searchsorted(poses.stamps, t_offs, right=True) - 1, 0, m - 1
-    )
-    dt = (t_offs - poses.stamps[idx])[:, None]
+    point finds the last IMU pose at or before it by `searchsorted` and
+    moves on from it with the rate and acceleration of the interval that
+    pose starts (FAST-LIO's pairing); a point past the window's last valid
+    sample (`imu_mask`, the window's) moves on with the last interval's.
 
-    rot_i = poses.rot[idx] @ so3.exp(poses.gyr_b[idx] * dt)
-    pos_i = poses.pos[idx] + poses.vel[idx] * dt + 0.5 * poses.acc_w[idx] * dt * dt
+    `ImuPoses` pairs slot j with the rate of interval j (`gyr_b[j]`) and
+    the acceleration of interval j - 1 (`acc_w[j]`), so the acceleration
+    is read one slot on."""
+    stamps = poses.stamps
+    last = torch.clamp(torch.sum(imu_mask.to(torch.int64), dim=0, keepdim=True) - 1, min=0)
+    idx = torch.minimum(torch.clamp(torch.searchsorted(stamps, t_offs, right=True) - 1, min=0), last)
+    dt = (t_offs - stamps[idx])[:, None]
+    rate = poses.gyr_b[torch.clamp(torch.minimum(idx, last - 1), min=0)]
+    acc = poses.acc_w[torch.minimum(idx + 1, last)]
+
+    rot_i = poses.rot[idx] @ so3.exp(rate * dt)
+    pos_i = poses.pos[idx] + poses.vel[idx] * dt + 0.5 * acc * dt * dt
 
     p_imu = points @ rot_il.T + t_il
     p_w = (rot_i @ p_imu[:, :, None])[:, :, 0] + pos_i

@@ -198,7 +198,7 @@ def lio_scan_step(
         state_prop, poses = _propagate(state, scan, cfg)
     with timing.span("lio.undistort"):
         pts_und = imu_mod.undistort(
-            scan.pts, scan.t_offs, scan.mask, poses, state_prop, rot_il, t_il
+            scan.pts, scan.t_offs, scan.mask, poses, state_prop, rot_il, t_il, scan.imu.mask
         )
     with timing.span("lio.downsample"):
         if axis_name is None:
@@ -718,8 +718,9 @@ class LivoPipeline:
         if self.step_cfg.cam is None or self.first_scan:
             self._advance(scan)
             return None
-        self._last_vio_img = np.asarray(_host(img), dtype=np.float32)
-        img = torch.tensor(self._last_vio_img, dtype=self.dtype, device=self.device)
+        with timing.span("pipeline.image_to_device"):
+            self._last_vio_img = np.asarray(_host(img), dtype=np.float32)
+            img = torch.tensor(self._last_vio_img, dtype=self.dtype, device=self.device)
         self.state, self.visual_map, info, summary = vio_scan_step(
             self.state, self.visual_map, scan, img, self.world_cloud, self.world_mask,
             self.rot_ci, self.t_ci, self.step_cfg,
@@ -737,9 +738,14 @@ class LivoPipeline:
             if n >= self._sum_cap or (self.scan_batch > 0 and n >= 8 * self.scan_batch + 8):
                 self.flush_scans()
             return None
-        self.n_selected.append(int(self._record(t_abs, summary)[7]))
+        self._selected(int(self._record(t_abs, summary)[7]))
         self.vio_before_lio += not self.n_effective
         return info
+
+    def _selected(self, n: int):
+        """A VIO update's selected-patch count, read back with its summary."""
+        self.n_selected.append(n)
+        timing.count("vio.selected", n)
 
     def _dump_annotated_frame(self, img: torch.Tensor):
         """Keypatch-annotated frame to <runtime.out_dir>/img/ (the
@@ -782,7 +788,7 @@ class LivoPipeline:
             s = rows[k]
             self.trajectory.append((t_abs, s[0:3], s[3:7]))
             if kind == "img":
-                self.n_selected.append(int(s[7]))
+                self._selected(int(s[7]))
                 continue
             _, _, cloud, mask, img = entry
             n_eff, accepted = int(s[7]), bool(s[9] > 0.5)

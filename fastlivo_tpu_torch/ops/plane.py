@@ -1,10 +1,19 @@
 """Batched plane estimation from k nearest neighbors (port of
 fastlivo_tpu/ops/plane.py).
 
-Fit n.p + d = 0 through k points by solving the 3x3 normal equations of
-A x = -1 (x = n/d) with the adjugate closed form — the JAX package's
-operation order, not `torch.linalg.solve`, so the valid bits agree — then
-normalize and gate on the largest point-to-plane residual.
+Fit n.p + d = 0 through k points as the least-squares solution of
+A x = -1 (x = n/d), then normalize and gate on the largest point-to-plane
+residual.
+
+The normal equations are solved about the neighbors' mean c. With
+M = sum (p - c)(p - c)^T, A^T A = M + k c c^T and A^T (-1) = -k c, so
+
+    x = -k adj(M) c / (det M + k c^T adj(M) c),
+
+whose denominator is det(A^T A). A LiDAR's neighbors lie a few cm apart and
+metres from the origin: there A^T A's condition number reaches 1e7 and
+its float32 adjugate (the JAX package's form) loses the normal, while M
+holds only the spread and keeps it.
 """
 
 from __future__ import annotations
@@ -16,8 +25,8 @@ import torch
 _EPS = 1e-20
 
 
-def _solve3(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batched 3x3 solve via the adjugate; returns (x, det)."""
+def _adjugate(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched 3x3 adjugate and determinant."""
     c00 = a[..., 1, 1] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 1]
     c01 = a[..., 1, 2] * a[..., 2, 0] - a[..., 1, 0] * a[..., 2, 2]
     c02 = a[..., 1, 0] * a[..., 2, 1] - a[..., 1, 1] * a[..., 2, 0]
@@ -52,6 +61,12 @@ def _solve3(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
         ],
         dim=-2,
     )
+    return adj, det
+
+
+def _solve3(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched 3x3 solve via the adjugate; returns (x, det)."""
+    adj, det = _adjugate(a)
     x = (adj @ b[..., None])[..., 0] / (det[..., None] + _EPS)
     return x, det
 
@@ -62,13 +77,18 @@ def esti_plane(
     threshold: float = 0.1,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fit planes through (N, K, 3) neighbor sets; a plane needs all K
-    neighbors valid and every residual within `threshold`. Returns
-    (normal (N, 3), d (N,), valid (N,)), zeros where invalid."""
-    g = neighbors.transpose(-1, -2) @ neighbors  # (N, 3, 3) Gram
-    rhs = -torch.sum(neighbors, dim=1)
-    x, det = _solve3(g, rhs)
+    neighbors valid, det(A^T A) above 1e-12 and every residual within
+    `threshold`. Returns (normal (N, 3), d (N,), valid (N,)), zeros where
+    invalid."""
+    k = neighbors.shape[1]
+    c = torch.mean(neighbors, dim=1)
+    q = neighbors - c[:, None]
+    adj, det_m = _adjugate(q.transpose(-1, -2) @ q)
+    u = (adj @ c[..., None])[..., 0]
+    det = det_m + k * torch.sum(c * u, dim=-1)  # det(A^T A)
+    x = (-k) * u / (det[..., None] + _EPS)
 
-    # Near-singular Grams give inf/NaN: sanitize so they cannot poison the
+    # Near-singular sets give inf/NaN: sanitize so they cannot poison the
     # innovation sums downstream, and invalidate.
     finite = torch.all(torch.isfinite(x), dim=-1)
     x = torch.where(finite[..., None], x, 0.0)

@@ -13,6 +13,13 @@ points are neighbours on a surface as on a spinning LiDAR and most of
 each scan survives the selection. (The synthetic generator's own scans
 shuffle points against time; on them only the capped edge points, 120 per
 scan, survive, too few for the two filters to stay within 15 mm.)
+
+The port's plane fit solves the normal equations about the neighbours'
+mean; the JAX package's solves the raw Gram, which in f32 loses the
+normals of these walls 10 m out. With its own fit the port's run leaves
+the JAX run by up to 74 mm, nearer the generator's motion (34 mm off in z
+at worst against JAX's 61 mm); so the port runs here with the JAX
+package's fit (`jax_order_esti_plane`), for this comparison only.
 """
 
 import numpy as np
@@ -30,6 +37,7 @@ from fastlivo_tpu_torch import run as trun
 from fastlivo_tpu_torch.io import export as TEXP
 from fastlivo_tpu_torch.io import features as TF
 from fastlivo_tpu_torch.io.sensors import LidarScan as TScan
+from fastlivo_tpu_torch.ops import plane as TPL
 from tests.test_features import _corner_scan
 
 torch.set_num_threads(2)
@@ -127,7 +135,24 @@ def ring_sweeps(seq, rings=32, per_ring=600, buckets=64, half=10.0, floor_z=-1.5
     return seq
 
 
-def test_cli_feature_selection_matches_jax(tmp_path):
+def jax_order_esti_plane(neighbors, neighbor_valid, threshold=0.1):
+    """The JAX package's plane fit (`fastlivo_tpu/ops/plane.py`): the
+    adjugate of the raw Gram A^T A in its operation order, gated as the
+    port's fit is."""
+    x, det = TPL._solve3(neighbors.transpose(-1, -2) @ neighbors, -torch.sum(neighbors, dim=1))
+    finite = torch.all(torch.isfinite(x), dim=-1)
+    x = torch.where(finite[..., None], x, 0.0)
+    norm = torch.linalg.vector_norm(x, dim=-1)
+    normal = x / (norm[..., None] + TPL._EPS)
+    d = 1.0 / (norm + TPL._EPS)
+    resid = torch.abs((neighbors @ normal[..., None])[..., 0] + d[:, None])
+    valid = (torch.all(neighbor_valid, dim=-1) & torch.all(resid <= threshold, dim=-1) & finite
+             & (torch.abs(det) > 1e-12) & (norm > TPL._EPS))
+    return torch.where(valid[..., None], normal, 0.0), torch.where(valid, d, 0.0), valid
+
+
+def test_cli_feature_selection_matches_jax(tmp_path, monkeypatch):
+    monkeypatch.setattr(TPL, "esti_plane", jax_order_esti_plane)
     seq = JSYN.generate(duration=2.5, imu_rate=100.0, scan_rate=10.0, pts_per_scan=10, seed=2, n_boxes=0)
     seq = ring_sweeps(seq)
     kept = [int((np.add(*TF.classify_features(TScan(s.stamp, s.pts, s.t_offs_ms)))).sum()) for s in seq.scans]

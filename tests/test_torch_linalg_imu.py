@@ -1,5 +1,9 @@
 """Port parity: linalg (Cholesky solves, closed-form eigh3), the IESKF MAP
-step and IMU propagation / undistortion.
+step and IMU propagation / undistortion. The port's undistortion pairs
+each IMU sample with the interval it starts and moves points past the last
+valid sample with the last interval (FAST-LIO's rule), where the JAX
+package pairs a sample with the interval before it and moves such points
+with a padded slot; it is held to JAX's `undistort` on poses re-paired so.
 
 Tolerances: solves of well-conditioned 18x18 systems agree to f32 rounding
 of LAPACK (rtol 1e-4); the closed-form eigenpair repeats the JAX formula
@@ -211,8 +215,27 @@ def test_kernel_check_rejects(case):
         TI._check(*bad[case])
 
 
-def test_undistort():
-    (j_state, j_poses), (t_state, t_poses) = _propagate_both(7)
+def forward_paired(poses, imu_mask):
+    """JAX's poses re-paired as the port's undistortion pairs them (each
+    sample with the rate and acceleration of the interval it starts, the
+    last valid sample with the last interval's), the padded slots holding
+    the last valid sample's stamp: JAX's `undistort` on them is the port's
+    rule in the JAX package's arithmetic."""
+    last = int(np.sum(imu_mask)) - 1
+    slots = np.arange(np.asarray(poses.stamps).shape[0])
+    held = np.minimum(slots, last)
+    return poses._replace(
+        stamps=jnp.asarray(poses.stamps)[held],
+        acc_w=jnp.asarray(poses.acc_w)[np.minimum(slots + 1, last)],
+        gyr_b=jnp.asarray(poses.gyr_b)[np.maximum(np.minimum(slots, last - 1), 0)],
+    )
+
+
+def _undistort_both(m, n_valid):
+    """(the port's, JAX's on forward-paired poses, the points' mask, the
+    points) over one window."""
+    (j_state, j_poses), (t_state, t_poses) = _propagate_both(7, m, n_valid)
+    imu_mask = _imu_case(7, m, n_valid)[1]["mask"]
     rng = np.random.default_rng(8)
     n = 512
     pts = rng.uniform(-10, 10, (n, 3)).astype(np.float32)
@@ -221,13 +244,26 @@ def test_undistort():
     rot_il = np.asarray(JSO3.exp(jnp.asarray([0.01, -0.02, 0.03])))
     t_il = np.array([0.05, -0.02, 0.1], np.float32)
     want = np.asarray(jax.jit(JI.undistort)(
-        jnp.asarray(pts), jnp.asarray(t_offs), jnp.asarray(mask), j_poses, j_state,
+        jnp.asarray(pts), jnp.asarray(t_offs), jnp.asarray(mask), forward_paired(j_poses, imu_mask), j_state,
         jnp.asarray(rot_il), jnp.asarray(t_il),
     ))
     got = TI.undistort(
         torch.from_numpy(pts), torch.from_numpy(t_offs), torch.from_numpy(mask), t_poses,
-        t_state, torch.from_numpy(rot_il), torch.from_numpy(t_il),
+        t_state, torch.from_numpy(rot_il), torch.from_numpy(t_il), torch.from_numpy(imu_mask),
     ).numpy()
+    return got, want, mask, pts
+
+
+def test_undistort():
+    got, want, mask, pts = _undistort_both(32, None)
     # |p| up to ~17 m: 1e-5 relative is ~0.2 mm.
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-4)
+    np.testing.assert_array_equal(got[~mask], pts[~mask])
+
+
+def test_undistort_masked_prefix_window():
+    """A 128-slot window with 21 valid samples, the tail repeating the last
+    stamp, as `io.sync.WindowBuilder` fills it."""
+    got, want, mask, pts = _undistort_both(128, 21)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-4)
     np.testing.assert_array_equal(got[~mask], pts[~mask])

@@ -16,7 +16,11 @@ tests/test_torch_scan_batch.py at smaller widths):
 - (e) a full buffer counts `dropped` and does not grow;
 - (f) self time is the duration less the union of the children's intervals;
 - the CLI's `--profile` carries the spans (VIO's too) into its chrome trace
-  and prints the span table and the counters per scan.
+  and prints the span table and the counters per scan;
+- with the camera on, each VIO update is one `pipeline.process_image` span
+  holding one `pipeline.image_to_device`, `vio.selected` adds up
+  `LivoPipeline.n_selected` (read back per update or at a flush), and the
+  poses equal an untraced run's bit for bit.
 """
 
 import contextlib
@@ -281,21 +285,62 @@ def test_stage_timer_records_through_the_tracer():
     assert timer.samples["lio_step"][0] <= d
 
 
-def test_cli_profile_carries_the_spans(tmp_path, capsys):
-    cam = (160, 128, 100.0, 100.0, 80.0, 64.0)
+CAM = (160, 128, 100.0, 100.0, 80.0, 64.0)
+CAM_SETS = {"lio.max_points": 2048, "map.capacity": 1 << 14, "imu.imu_int_frame": 32,
+            "vio.max_visual_points": 1024, "vio.max_obs_per_point": 4, "camera.width": CAM[0],
+            "camera.height": CAM[1], "camera.fx": CAM[2], "camera.fy": CAM[3], "camera.cx": CAM[4],
+            "camera.cy": CAM[5], "camera.rcl": tuple(TSYN.R_IC_FORWARD.T.reshape(-1).tolist()),
+            "camera.pcl": (0.0, 0.0, 0.0), "extrinsics.extrinsic_t": (0.0, 0.0, 0.0)}
+
+
+@pytest.fixture(scope="module")
+def camera_log(tmp_path_factory):
     seq = TSYN.generate(duration=1.2, imu_rate=100.0, pts_per_scan=2000, seed=2, n_boxes=0,
-                        camera=Pinhole(*cam), cam_rate=10.0, cam_offset=0.055, device="cpu")
-    log = str(tmp_path / "seq.flvo")
+                        camera=Pinhole(*CAM), cam_rate=10.0, cam_offset=0.055, device="cpu")
+    log = str(tmp_path_factory.mktemp("camera") / "seq.flvo")
     TLOG.write_sequence(log, seq)
-    rcl = tuple(TSYN.R_IC_FORWARD.T.reshape(-1).tolist())
-    sets = {"lio.max_points": 2048, "map.capacity": 1 << 14, "imu.imu_int_frame": 32,
-            "vio.max_visual_points": 1024, "vio.max_obs_per_point": 4, "camera.width": cam[0],
-            "camera.height": cam[1], "camera.fx": cam[2], "camera.fy": cam[3], "camera.cx": cam[4],
-            "camera.cy": cam[5], "camera.rcl": rcl, "camera.pcl": (0.0, 0.0, 0.0),
-            "extrinsics.extrinsic_t": (0.0, 0.0, 0.0)}
+    return log
+
+
+def _camera_run(log, traced, **sets):
+    cfg = load_config(os.path.join(REPO, "configs", "avia_livo.yaml"), {**CAM_SETS, **sets})
+    before = timing.counters()
+    if traced:
+        timing.enable()
+    try:
+        pipe = trun.run_log(log, cfg, progress=False, device="cpu")
+    finally:
+        timing.disable()
+    return pipe, timing.drain(), timing.counter_delta(timing.counters(), before)
+
+
+@pytest.mark.parametrize("scan_batch", [1, 2])
+def test_camera_spans_and_selected_count(camera_log, scan_batch):
+    off, off_trace, off_delta = _camera_run(camera_log, False, **{"lio.scan_batch": scan_batch})
+    on, trace, delta = _camera_run(camera_log, True, **{"lio.scan_batch": scan_batch})
+    assert off_trace.spans == [] and trace.dropped == 0
+    assert off_delta == delta
+    assert len(off.trajectory) == len(on.trajectory)
+    for (ta, pa, qa), (tb, pb, qb) in zip(off.trajectory, on.trajectory):
+        assert ta == tb and np.array_equal(pa, pb) and np.array_equal(qa, qb)
+    assert off.n_selected == on.n_selected and max(on.n_selected) > 0
+    assert delta["vio.selected"] == sum(on.n_selected)
+    spans = trace.spans
+    frames = [i for i, s in enumerate(spans) if s.name == "pipeline.image_to_device"]
+    assert len(frames) == delta["pipeline.vio_updates"] == len(on.n_selected) > 0
+    opened = {}
+    for i in frames:
+        p = spans[spans[i].parent]
+        assert p.name == "pipeline.process_image" and spans[i].update == p.update
+        opened[spans[i].parent] = opened.get(spans[i].parent, 0) + 1
+    assert set(opened.values()) == {1}
+
+
+def test_cli_profile_carries_the_spans(tmp_path, camera_log, capsys):
+    log = camera_log
     argv = ["--log", log, "--config", os.path.join(REPO, "configs", "avia_livo.yaml"), "--device", "cpu",
             "--out", str(tmp_path / "out"), "--profile", str(tmp_path / "prof")]
-    for k, v in sets.items():
+    for k, v in CAM_SETS.items():
         argv += ["--set", f"{k}={v!r}"]
     pipe = trun.main(argv)
     assert not timing._S.on
@@ -303,10 +348,10 @@ def test_cli_profile_carries_the_spans(tmp_path, capsys):
     with open(tmp_path / "prof" / "trace.json") as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     want = {"pipeline.process_scan", "pipeline.process_image", "lio.eskf.search", "voxel_map.knn", "vio.select",
-            "vio.update", "vio.maintain", "io.next_group", "lio_step"}
+            "vio.update", "vio.maintain", "io.next_group", "lio_step", "pipeline.image_to_device"}
     assert want <= names
     out = capsys.readouterr().out
     assert "spans dropped: 0" in out
     for name in ("lio.eskf.trips", "vio.trips", "sync.eskf_flags", "sync.vio_flags", "sync.to_device",
-                 "pipeline.lio_updates", "lio.eskf.solve"):
+                 "pipeline.lio_updates", "lio.eskf.solve", "pipeline.image_to_device", "vio.selected"):
         assert name in out, name

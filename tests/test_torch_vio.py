@@ -9,6 +9,12 @@ search levels, cell winners, the depth image — must match exactly; warped
 reference patches agree to 2e-3 intensity units (four-tap sums rounded in
 another order) and the posterior to 1e-4 m / 1e-4 rad (up to 30
 iterations of f32 6x6 solves).
+
+The observation a point is matched with is the one seen from the direction
+closest to the current view: where a rig passes the same place again, the
+f32 cosines of directions 1e-4 rad apart round to one value, so the port
+compares squared chords and is held to a float64 argmax of the cosine
+(`test_closest_view_obs_resolves_revisits`).
 """
 
 import jax
@@ -157,3 +163,50 @@ def test_visual_map_helpers():
         np.asarray(JVM.obs_cam_pos(jnp.asarray(rcw), jnp.asarray(pcw))), atol=1e-6,
     )
     assert int(TVM.num_active(m)) == 0
+
+
+def test_closest_view_obs_resolves_revisits():
+    """Points 2-10 m out, each seen by four cameras placed where a rig
+    passing again would be (directions 1e-5-1e-3 rad apart), and points
+    whose best view lies just inside or outside 60 degrees: the f32 choice
+    equals the float64 argmax of the cosine, the gate its cos > 0.5."""
+    rng = np.random.default_rng(5)
+    n, k = 512, 4
+    pos = rng.uniform(-10.0, 10.0, (n, 3))
+    pos *= rng.uniform(2.0, 10.0, (n, 1)) / np.linalg.norm(pos, axis=1, keepdims=True)
+    cam = rng.normal(size=3) * 0.5
+    d = (cam - pos) / np.linalg.norm(cam - pos, axis=1, keepdims=True)
+    # Observation directions: the current one turned by 1e-5-1e-3 rad about random axes.
+    axis = rng.normal(size=(n, k, 3))
+    axis -= np.sum(axis * d[:, None], -1, keepdims=True) * d[:, None]
+    axis /= np.linalg.norm(axis, axis=-1, keepdims=True)
+    ang = 10.0 ** rng.uniform(-5.0, -3.0, (n, k))
+    # The last 64 points: one view at 59.9 or 60.1 degrees, the rest beyond 80.
+    ang[-64:] = np.radians(rng.uniform(80.0, 120.0, (64, k)))
+    ang[-64:, 0] = np.radians(np.where(np.arange(64) % 2 == 0, 59.9, 60.1))
+    od = np.cos(ang)[..., None] * d[:, None] + np.sin(ang)[..., None] * axis
+    obs_c = pos[:, None] + od * rng.uniform(2.0, 10.0, (n, k, 1))
+    rcw = np.linalg.qr(rng.normal(size=(n, k, 3, 3)))[0]
+    pcw = -np.einsum("nkij,nkj->nki", rcw, obs_c)
+    m = TVM.make_visual_map(TVM.VisualMapConfig(capacity=n, max_obs=k), device="cpu")
+    m = m._replace(pos=_t(pos.astype(np.float32)), obs_rcw=_t(rcw.astype(np.float32)),
+                   obs_pcw=_t(pcw.astype(np.float32)), active=torch.ones(n, dtype=torch.bool),
+                   obs_valid=torch.ones((n, k), dtype=torch.bool))
+    best, ok = TVM.closest_view_obs(m, torch.arange(n, dtype=torch.int32), _t(cam.astype(np.float32)))
+
+    # The float64 answer from the same f32 numbers.
+    p64 = pos.astype(np.float32).astype(np.float64)
+    r64, t64 = rcw.astype(np.float32).astype(np.float64), pcw.astype(np.float32).astype(np.float64)
+    c64 = -np.einsum("nkji,nkj->nki", r64, t64)
+    u = c64 - p64[:, None]
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    v = cam.astype(np.float32).astype(np.float64) - p64
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    cos = np.sum(u * v[:, None], -1)
+    want = np.argmax(cos, -1)
+    np.testing.assert_array_equal(best.numpy(), want)
+    np.testing.assert_array_equal(ok.numpy(), cos[np.arange(n), want] > 0.5)
+    assert ok[:-64].all() and ok[-64::2].all() and not ok[-63::2].any()
+    # The f32 cosine (the JAX package's form) ties and misses most revisits.
+    cos32 = torch.sum(_t((u).astype(np.float32)) * _t(v.astype(np.float32))[:, None], -1)
+    assert (torch.argmax(cos32[:-64], -1).numpy() != want[:-64]).mean() > 0.3
