@@ -26,7 +26,9 @@ result line without a CUDA device):
    640x512 camera) on a periodic circular room trajectory with matching
    IMU samples and rendered frames. Launch counts are reset just before
    the timed pairs and read just after: every patch read goes through
-   `patch_sample`, and K1 is no longer on this path.
+   `patch_sample`, and K1 is no longer on this path. Over the profiled
+   pairs, `patch_sample`'s counter must equal the kernel runs the device
+   trace records (the photometric update's run as graph replays).
 3. determinism: the same short sequence twice from one seed; trajectories
    and the map's counts/meta must match bitwise.
 4. CLI: `run.run_log`, the body of `python -m fastlivo_tpu_torch.run`, on
@@ -157,6 +159,7 @@ import bz2
 import json
 import math
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -966,17 +969,32 @@ def _device_us(evt):
     return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0)
 
 
+# csrc/patch_sample.cu's kernels, as the device trace names them.
+PS_KERNEL_RE = re.compile(r"\b(values|grads)_kernel\b")
+
+
+def kernel_runs(key_averages, pattern):
+    """Executions of the device kernels whose name matches `pattern`, as
+    CUPTI recorded them (the kernel nodes of a replayed CUDA graph too)."""
+    from torch.autograd import DeviceType
+
+    return sum(e.count for e in key_averages if e.device_type == DeviceType.CUDA and pattern.search(e.key))
+
+
 def profile_pairs(run, inputs):
     """torch.profiler over a few pairs: device time per pair (summed over
     kernel events only: an operator's entry repeats its kernels' time) and
-    the operators that take it."""
+    the operators that take it; `patch_sample`'s launches as its counter
+    counts them and as the device trace records them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    counted = read_launches()["patch_sample"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
         finish([run.pair(inp) for inp in inputs])
+    counted = read_launches()["patch_sample"] - counted
     ka = prof.key_averages()
     kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
     ops = [e for e in ka if e.device_type == DeviceType.CPU and _device_us(e) > 0]
@@ -986,6 +1004,7 @@ def profile_pairs(run, inputs):
         device_ms_per_pair=sum(_device_us(e) for e in kernels) / 1e3 / len(inputs),
         kernels_per_pair=sum(e.count for e in kernels) / len(inputs),
         top_ops=[dict(name=e.key[:90], calls=e.count, device_ms=_device_us(e) / 1e3) for e in top],
+        patch_sample_counted=counted, patch_sample_ran=kernel_runs(ka, PS_KERNEL_RE),
     )
 
 
@@ -1059,6 +1078,11 @@ def phase_livo(device, n_warm=3, n_timed=20, n_profile=2):
         raise AssertionError(f"imu_propagate launched {launches['imu_propagate']} times in {len(timed)} pairs")
 
     prof = profile_pairs(run, extra[:n_profile])
+    # The counter against the device: the photometric update's launches
+    # run as kernel nodes of replayed graphs.
+    if prof["patch_sample_counted"] != prof["patch_sample_ran"]:
+        raise AssertionError(f"patch_sample counted {prof['patch_sample_counted']} launches, the device trace "
+                             f"recorded {prof['patch_sample_ran']} runs")
     syncs = count_syncs(run, extra[n_profile])
     lio_ms = [r["lio_ms"] for r in timed]
     vio_ms = [r["vio_ms"] for r in timed]
@@ -3291,6 +3315,8 @@ def main(argv=None):
             replaces="fastlivo_tpu/ops/pallas_windows.py:66",
             fuses="fastlivo_tpu/ops/image.py:229",
             launches=livo["launches"]["patch_sample"], on_main_path=True,
+            launches_profiled=livo["profile"]["patch_sample_counted"],
+            runs_profiled=livo["profile"]["patch_sample_ran"],
             launches_cli=cli_launches["patch_sample"],
             launches_cli_per_frame=cli["main"]["patch_sample_per_frame"],
             launches_5b=gnss_launches["patch_sample"],

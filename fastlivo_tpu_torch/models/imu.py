@@ -236,7 +236,7 @@ def _launch(state, window, t_end, acc_scale, cov_gyr, cov_acc, cov_bias_gyr, cov
     )
     if err != 0:
         raise RuntimeError(f"imu_propagate kernel launch failed: cudaError {err}")
-    timing.count("imu_propagate.launches")  # one per launch
+    timing.count_launch("imu_propagate.launches")
     rot, pos, vel, cov, p_rot, p_pos, p_vel, p_acc, p_gyr = torch.split(
         out, (9, 3, 3, DIM_STATE * DIM_STATE, 9 * m, 3 * m, 3 * m, 3 * m, 3 * m)
     )

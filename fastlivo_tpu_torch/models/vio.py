@@ -8,7 +8,9 @@ GPU (csrc/patch_sample.cu, through ops/patch_sample.py). Per frame:
 and 2 in `maintain` (every pyramid level of the stored patches in one
 launch). `vio_update` builds the padded pyramid once per frame and hands
 it to the three phases. The per-level `lax.while_loop` becomes a Python
-loop that reads its `done` flag from the device once per trip.
+loop that reads its stop flag from the device once per trip; each trip
+(`gn_trip`) runs op by op on the CPU and, on the GPU, replays its level's
+CUDA graph, captured once per shape and setting (`trip_graph_key`).
 """
 
 from __future__ import annotations
@@ -314,6 +316,234 @@ def select(
     return sel, depth_img
 
 
+class TripFrame(NamedTuple):
+    """A frame's inputs to every Gauss-Newton trip of the photometric
+    update."""
+
+    prop: NavState  # the propagated prior
+    p_inv: torch.Tensor  # (18, 18) its information over img_point_cov
+    pt_pos: torch.Tensor  # (N, 3) the selection's points
+    valid: torch.Tensor  # (N,)
+    ref_patch: torch.Tensor  # (N, L, P^2)
+    scale: torch.Tensor  # (N,)
+    strides: torch.Tensor  # (N,) int32, round(scale)
+    rot_ci: torch.Tensor
+    t_ci: torch.Tensor
+
+
+class Carry(NamedTuple):
+    """What one trip hands the next: the nominal state iterated on, the
+    best accepted one, the gain and the accepted error."""
+
+    nav: Tuple[torch.Tensor, ...]  # rot, pos, vel, bg, ba, grav
+    best: Tuple[torch.Tensor, ...]
+    g_mat: torch.Tensor  # (18, 18)
+    last_error: torch.Tensor  # ()
+
+
+def _residuals_and_h(rot, pos, frame: TripFrame, img_pad, level: int, cam: Pinhole, cfg: VioConfig):
+    """Photometric residuals and their pose Jacobian at one pyramid level
+    (`img_pad` is that level of the padded pyramid)."""
+    dtype = img_pad.dtype
+    psz2 = cfg.patch_size**2
+    rcw, pcw = camera_pose(rot, pos, frame.rot_ci, frame.t_ci)
+    p_i = (frame.pt_pos - pos) @ rot
+    p_c = frame.pt_pos @ rcw.T + pcw
+    z_ok = p_c[..., 2] > 1e-3
+    uv = cam.project(p_c)
+    in_ok = cam.in_frame(uv, border=cfg.border_px // 2)
+    valid = frame.valid & z_ok & in_ok
+
+    val, du, dv = img_ops.strided_patch_sample(
+        img_pad, uv / (1 << level), frame.strides, cfg.patch_size,
+        _SAMPLE_PAD, grad_units=frame.scale * (2.0**level),
+    )
+    ref = frame.ref_patch[:, level, :]
+    if cfg.exposure_en:
+        w = valid.to(dtype)[:, None] * torch.ones_like(val)
+        n_w = torch.clamp(torch.sum(w), min=1.0)
+        mv = torch.sum(val * w) / n_w
+        mr = torch.sum(ref * w) / n_w
+        cov_vr = torch.sum((val - mv) * (ref - mr) * w) / n_w
+        var_v = torch.sum((val - mv) ** 2 * w) / n_w
+        a_exp = torch.clamp(cov_vr / torch.clamp(var_v, min=1e-6), 0.5, 2.0)
+        b_exp = mr - a_exp * mv
+        val = a_exp * val + b_exp
+        du = a_exp * du
+        dv = a_exp * dv
+    res = val - ref
+
+    jdpi = cam.dpi(p_c)  # (N, 2, 3)
+    dpc_dth = frame.rot_ci @ so3.hat(p_i)  # (N, 3, 3)
+    dpc_dp = -(frame.rot_ci @ rot.T)
+    jimg = torch.stack([du, dv], dim=-1)  # (N, 64, 2)
+    juv = jimg @ jdpi  # (N, 64, 3)
+    jth = juv @ dpc_dth
+    jp = juv @ dpc_dp
+    h = torch.cat([jth, jp], dim=-1)
+
+    h = torch.where(valid[:, None, None], h, 0.0)
+    res = torch.where(valid[:, None], res, 0.0)
+    n_meas = torch.sum(valid.to(torch.int32)) * psz2
+    err = torch.sum(res * res) / torch.clamp(n_meas.to(dtype), min=1.0)
+    return h.reshape(-1, 6), res.reshape(-1), err
+
+
+def gn_trip(
+    carry: Carry, frame: TripFrame, img_pad: torch.Tensor, level: int, cam: Pinhole, cfg: VioConfig
+) -> Tuple[Carry, torch.Tensor]:
+    """One Gauss-Newton trip at one pyramid level (the body of the JAX
+    while_loop): residuals at `carry.nav`, one MAP step, acceptance on the
+    error and rollback. Reads nothing back to the host. Returns the next
+    carry and the device flag `(~improved) | converged`; a level stops
+    there or after cfg.max_iterations trips."""
+    dtype = img_pad.dtype
+    dev = img_pad.device
+    nav, best = carry.nav, carry.best
+    h, res, err = _residuals_and_h(nav[0], nav[1], frame, img_pad, level, cam, cfg)
+    improved = err <= carry.last_error
+
+    hth = torch.zeros((DIM_STATE, DIM_STATE), dtype=dtype, device=dev)
+    hth[0:6, 0:6] = h.T @ h
+    hty = torch.zeros((DIM_STATE,), dtype=dtype, device=dev)
+    hty[0:6] = -(h.T @ res)
+    cur = NavState(*nav, frame.prop.cov)
+    vec = boxminus(frame.prop, cur)
+    dx, g_new = ieskf.map_step(frame.p_inv, hth, hty, vec)
+    new = boxplus(cur, dx)
+    converged = (torch.linalg.vector_norm(dx[0:3]) * _R2D < cfg.converge_rot_deg) & (
+        torch.linalg.vector_norm(dx[3:6]) * 100.0 < cfg.converge_trans_cm
+    )
+
+    new_nav = (new.rot, new.pos, new.vel, new.bg, new.ba, new.grav)
+    out = Carry(
+        nav=tuple(torch.where(improved, a, b) for a, b in zip(new_nav, best)),
+        best=tuple(torch.where(improved, a, b) for a, b in zip(nav, best)),
+        g_mat=torch.where(improved, g_new, carry.g_mat),
+        last_error=torch.where(improved, err, carry.last_error),
+    )
+    return out, (~improved) | converged
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    """The tensors of nested tuples and lists, in order."""
+    out = []
+    for x in tree:
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        else:
+            out.extend(_leaves(x))
+    return out
+
+
+def _empty_like(tree):
+    """Uninitialized tensors shaped as the tensors of nested tuples and
+    NamedTuples."""
+    items = [torch.empty_like(x) if isinstance(x, torch.Tensor) else _empty_like(x) for x in tree]
+    return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+
+
+class _EagerTrips:
+    """The trips of a frame run op by op (CPU tensors)."""
+
+    def __init__(self, carry: Carry, frame: TripFrame, pyr, cam: Pinhole, cfg: VioConfig):
+        self.carry, self.frame, self.pyr, self.cam, self.cfg = carry, frame, pyr, cam, cfg
+
+    def start(self, level: int):
+        """A level starts where the last ended, accepting any error."""
+        c = self.carry
+        self.carry = c._replace(best=c.nav, last_error=torch.full_like(c.last_error, torch.inf))
+
+    def trip(self, level: int) -> torch.Tensor:
+        self.carry, stop = gn_trip(self.carry, self.frame, self.pyr[level], level, self.cam, self.cfg)
+        return stop
+
+
+def trip_graph_key(frame: TripFrame, pyr, cam: Pinhole, cfg: VioConfig):
+    """What a captured trip bakes in: the shape and dtype of every input
+    tensor (the frame's and each padded level's), the device, the
+    configuration and the camera."""
+    leaves = _leaves((frame, pyr))
+    return tuple((tuple(t.shape), t.dtype) for t in leaves), pyr[0].device, cfg, cam
+
+
+class _GraphedTrips:
+    """The trips of one `trip_graph_key`, one CUDA graph per pyramid level
+    (CUDA tensors), `_EagerTrips`' interface. The graphs read and write one
+    set of static buffers: a frame's inputs are copied in once (`load`),
+    each level restarts the carry in place, and each replay ends by
+    copying its carry over the one it read, so replays chain. A level is
+    captured at its first trip, after one warm-up trip on a side stream
+    (run, and not a trip of the update); a host synchronization in the
+    body fails the capture. The kernel launches recorded into a level's
+    graph (`timing.graph_counts`) are counted at each of its replays. One
+    frame at a time: frames of one key share the buffers."""
+
+    def __init__(self, carry: Carry, frame: TripFrame, pyr, cam: Pinhole, cfg: VioConfig):
+        self.carry, self.frame = _empty_like(carry), _empty_like(frame)
+        self.pyr = [torch.empty_like(p) for p in pyr]
+        self.cam, self.cfg = cam, cfg
+        self.graphs, self.stops, self.launches = {}, {}, {}
+        # Warm-ups and captures on one side stream: cuBLAS keeps a
+        # workspace for each stream it meets.
+        self.side = torch.cuda.Stream(pyr[0].device)
+
+    def load(self, carry: Carry, frame: TripFrame, pyr):
+        for dst, src in zip(_leaves((self.carry, self.frame, self.pyr)), _leaves((carry, frame, pyr))):
+            dst.copy_(src)
+
+    def start(self, level: int):
+        for dst, src in zip(self.carry.best, self.carry.nav):
+            dst.copy_(src)
+        self.carry.last_error.fill_(torch.inf)
+
+    def _trip(self, level: int):
+        return gn_trip(self.carry, self.frame, self.pyr[level], level, self.cam, self.cfg)
+
+    def _capture(self, level: int):
+        main = torch.cuda.current_stream(self.side.device)
+        self.side.wait_stream(main)
+        with torch.cuda.stream(self.side):
+            self._trip(level)
+        main.wait_stream(self.side)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: another thread's CUDA calls (the loop back end's)
+        # do not break this capture.
+        with timing.graph_counts() as launches, torch.cuda.graph(
+            graph, stream=self.side, capture_error_mode="thread_local"
+        ):
+            carry, stop = self._trip(level)
+            for dst, src in zip(_leaves(self.carry), _leaves(carry)):
+                dst.copy_(src)
+        timing.count("vio.graph_captures")
+        self.graphs[level], self.stops[level], self.launches[level] = graph, stop, dict(launches)
+
+    def trip(self, level: int) -> torch.Tensor:
+        if level not in self.graphs:
+            self._capture(level)
+        self.graphs[level].replay()
+        timing.count("vio.graph_replays")
+        for k, n in self.launches[level].items():
+            timing.count(k, n)
+        return self.stops[level]
+
+
+# trip_graph_key -> _GraphedTrips (as ops/patch_sample.py's `_STATIC`); a
+# run meets one key, its camera's N and pyramid.
+_TRIP_GRAPHS = {}
+
+
+def _graphed_trips(carry: Carry, frame: TripFrame, pyr, cam: Pinhole, cfg: VioConfig) -> _GraphedTrips:
+    """The cached graphs of the frame's key (made at its first frame),
+    loaded with the frame's inputs."""
+    key = trip_graph_key(frame, pyr, cam, cfg)
+    trips = _TRIP_GRAPHS.get(key)
+    if trips is None:
+        trips = _TRIP_GRAPHS[key] = _GraphedTrips(carry, frame, pyr, cam, cfg)
+    trips.load(carry, frame, pyr)
+    return trips
+
+
 def photometric_update(
     state_prop: NavState,
     sel: Selection,
@@ -326,105 +556,51 @@ def photometric_update(
 ) -> Tuple[NavState, torch.Tensor, torch.Tensor]:
     """Phase B: coarse-to-fine iterated EKF with error-decrease acceptance
     and rollback. `pyr` is img's padded pyramid (built here when None).
+    Each trip is `gn_trip`: op by op for CPU tensors, a replay of its
+    level's captured CUDA graph for CUDA tensors, the same kernels either
+    way. The host reads one flag a trip.
     Returns (posterior, error_before, error_after)."""
     dtype = img.dtype
     dev = img.device
-    p_inv = linalg.psd_inverse(state_prop.cov / cfg.img_point_cov)
-    psz2 = cfg.patch_size**2
     if pyr is None:
         pyr = pyramid_padded(img, cfg.levels)
-    strides_i = torch.round(sel.scale).to(torch.int32)
-
-    def residuals_and_h(rot, pos, level):
-        rcw, pcw = camera_pose(rot, pos, rot_ci, t_ci)
-        p_i = (sel.pt_pos - pos) @ rot
-        p_c = sel.pt_pos @ rcw.T + pcw
-        z_ok = p_c[..., 2] > 1e-3
-        uv = cam.project(p_c)
-        in_ok = cam.in_frame(uv, border=cfg.border_px // 2)
-        valid = sel.valid & z_ok & in_ok
-
-        val, du, dv = img_ops.strided_patch_sample(
-            pyr[level], uv / (1 << level), strides_i, cfg.patch_size,
-            _SAMPLE_PAD, grad_units=sel.scale * (2.0**level),
-        )
-        ref = sel.ref_patch[:, level, :]
-        if cfg.exposure_en:
-            w = valid.to(dtype)[:, None] * torch.ones_like(val)
-            n_w = torch.clamp(torch.sum(w), min=1.0)
-            mv = torch.sum(val * w) / n_w
-            mr = torch.sum(ref * w) / n_w
-            cov_vr = torch.sum((val - mv) * (ref - mr) * w) / n_w
-            var_v = torch.sum((val - mv) ** 2 * w) / n_w
-            a_exp = torch.clamp(cov_vr / torch.clamp(var_v, min=1e-6), 0.5, 2.0)
-            b_exp = mr - a_exp * mv
-            val = a_exp * val + b_exp
-            du = a_exp * du
-            dv = a_exp * dv
-        res = val - ref
-
-        jdpi = cam.dpi(p_c)  # (N, 2, 3)
-        dpc_dth = rot_ci @ so3.hat(p_i)  # (N, 3, 3)
-        dpc_dp = -(rot_ci @ rot.T)
-        jimg = torch.stack([du, dv], dim=-1)  # (N, 64, 2)
-        juv = jimg @ jdpi  # (N, 64, 3)
-        jth = juv @ dpc_dth
-        jp = juv @ dpc_dp
-        h = torch.cat([jth, jp], dim=-1)
-
-        h = torch.where(valid[:, None, None], h, 0.0)
-        res = torch.where(valid[:, None], res, 0.0)
-        n_meas = torch.sum(valid.to(torch.int32)) * psz2
-        err = torch.sum(res * res) / torch.clamp(n_meas.to(dtype), min=1.0)
-        return h.reshape(-1, 6), res.reshape(-1), err
-
-    def run_level(state_in: NavState, g_mat_in, level):
-        nav = (state_in.rot, state_in.pos, state_in.vel, state_in.bg, state_in.ba, state_in.grav)
-        best = nav
-        g_mat = g_mat_in
-        last_error = torch.tensor(torch.inf, dtype=dtype, device=dev)
-        it = 0
-        while True:  # the JAX while_loop: one host read of `done` per trip
-            timing.count("vio.trips")
-            h, res, err = residuals_and_h(nav[0], nav[1], level)
-            improved = err <= last_error
-
-            hth = torch.zeros((DIM_STATE, DIM_STATE), dtype=dtype, device=dev)
-            hth[0:6, 0:6] = h.T @ h
-            hty = torch.zeros((DIM_STATE,), dtype=dtype, device=dev)
-            hty[0:6] = -(h.T @ res)
-            cur = NavState(*nav, state_prop.cov)
-            vec = boxminus(state_prop, cur)
-            dx, g_new = ieskf.map_step(p_inv, hth, hty, vec)
-            new = boxplus(cur, dx)
-            converged = (torch.linalg.vector_norm(dx[0:3]) * _R2D < cfg.converge_rot_deg) & (
-                torch.linalg.vector_norm(dx[3:6]) * 100.0 < cfg.converge_trans_cm
-            )
-
-            new_nav = (new.rot, new.pos, new.vel, new.bg, new.ba, new.grav)
-            nav_next = tuple(torch.where(improved, a, b) for a, b in zip(new_nav, best))
-            best = tuple(torch.where(improved, a, b) for a, b in zip(nav, best))
-            nav = nav_next
-            g_mat = torch.where(improved, g_new, g_mat)
-            last_error = torch.where(improved, err, last_error)
-            it += 1
-            done = (~improved) | converged | (it >= cfg.max_iterations)
-            timing.sync_point("vio_flags")
-            if bool(done):
-                break
-        return NavState(*nav, state_prop.cov), g_mat, last_error
-
-    state = state_prop
-    g_mat = torch.zeros((DIM_STATE, DIM_STATE), dtype=dtype, device=dev)
+    frame = TripFrame(
+        prop=state_prop,
+        p_inv=linalg.psd_inverse(state_prop.cov / cfg.img_point_cov),
+        pt_pos=sel.pt_pos,
+        valid=sel.valid,
+        ref_patch=sel.ref_patch,
+        scale=sel.scale,
+        strides=torch.round(sel.scale).to(torch.int32),
+        rot_ci=rot_ci,
+        t_ci=t_ci,
+    )
+    nav = tuple(state_prop[:6])
+    carry = Carry(
+        nav=nav, best=nav, g_mat=torch.zeros((DIM_STATE, DIM_STATE), dtype=dtype, device=dev),
+        last_error=torch.full((), torch.inf, dtype=dtype, device=dev),
+    )
+    trips = (_graphed_trips if img.is_cuda else _EagerTrips)(carry, frame, pyr[: cfg.levels], cam, cfg)
     err_first = None
-    err_last = torch.tensor(0.0, dtype=dtype, device=dev)
     for level in range(cfg.levels - 1, -1, -1):
-        state, g_mat, err_last = run_level(state, g_mat, level)
+        trips.start(level)
+        it = 0
+        while True:  # the JAX while_loop: one host read of the flag per trip
+            timing.count("vio.trips")
+            stop = trips.trip(level)
+            it += 1
+            timing.sync_point("vio_flags")
+            if bool(stop) or it >= cfg.max_iterations:
+                break
         if err_first is None:
-            err_first = err_last
+            err_first = trips.carry.last_error.clone()
+    # Copies: the graphs' buffers are overwritten by the next frame.
+    carry = trips.carry
+    err_last = carry.last_error.clone()
+    state = NavState(*[t.clone() for t in carry.nav], state_prop.cov)
 
     improved = err_last <= err_first
-    cov = torch.where(improved, state_prop.cov - g_mat @ state_prop.cov, state_prop.cov)
+    cov = torch.where(improved, state_prop.cov - carry.g_mat @ state_prop.cov, state_prop.cov)
     cov = 0.5 * (cov + cov.T)
     return state._replace(cov=cov), err_first, err_last
 

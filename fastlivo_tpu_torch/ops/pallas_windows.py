@@ -82,7 +82,7 @@ def extract_windows_cuda(
     )
     if err != 0:
         raise RuntimeError(f"extract_windows kernel launch failed: cudaError {err}")
-    timing.count("extract_windows.launches")  # one per launch
+    timing.count_launch("extract_windows.launches")
     return out
 
 

@@ -294,7 +294,7 @@ def _launch(levels, centers, strides, patch_size, pad, stride_set, grad_units):
     err = _kernel_fn()(*args, _stream(centers))
     if err != 0:
         raise RuntimeError(f"patch_sample kernel launch failed: cudaError {err}")
-    timing.count("patch_sample.launches")  # one per launch
+    timing.count_launch("patch_sample.launches")
     return res
 
 

@@ -24,7 +24,10 @@ it; spans outside an update carry -1.
 Counters. `count(name, n)` is a plain integer add and always on.
 `sync_point(site)` counts one host synchronization that the program itself
 asks for, under `sync.<site>`. `counters()` returns a snapshot; a reader
-takes the difference of two.
+takes the difference of two. A kernel wrapper counts its launch with
+`count_launch`: a launch recorded into a CUDA graph runs only when the
+graph replays, so it goes to the tally of the capture its thread holds
+open (`graph_counts`), which the graph's owner counts at each replay.
 
 `self_ns` gives each span's self time (its duration less the union of its
 children's intervals); `report` prints the span table and the counters.
@@ -202,6 +205,35 @@ def drain() -> Trace:
 def count(name: str, n: int = 1):
     """Add n to the counter `name` (always on)."""
     _COUNTERS[name] += n
+
+
+_GRAPH = threading.local()  # .tally: the open `graph_counts` of this thread
+
+
+def count_launch(name: str):
+    """Count one kernel launch under `name` where it runs: now, or, when
+    the current stream is capturing a CUDA graph, at each replay (it is
+    added to this thread's open `graph_counts`; a capture without one
+    counts its launches nowhere)."""
+    if torch.cuda.is_current_stream_capturing():
+        tally = getattr(_GRAPH, "tally", None)
+        if tally is not None:
+            tally[name] += 1
+    else:
+        _COUNTERS[name] += 1
+
+
+@contextlib.contextmanager
+def graph_counts():
+    """Collect the launches that this thread records into a CUDA graph
+    while open (`count_launch`): yields a dict of counter name -> launches
+    that the graph's owner adds with `count` at each replay."""
+    prev = getattr(_GRAPH, "tally", None)
+    _GRAPH.tally = tally = defaultdict(int)
+    try:
+        yield tally
+    finally:
+        _GRAPH.tally = prev
 
 
 def sync_point(site: str, n: int = 1):

@@ -174,9 +174,10 @@ def test_patch_sample_replays_in_a_cuda_graph(cuda_device, grads):
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     before = _launches("patch_sample")
-    with torch.cuda.graph(graph):
+    with timing.graph_counts() as launches, torch.cuda.graph(graph):
         out = call()
-    assert _launches("patch_sample") == before + 1
+    # Recorded, not run: the launch goes to the capture's tally.
+    assert _launches("patch_sample") == before and dict(launches) == {"patch_sample.launches": 1}
     c.copy_(c2)
     graph.replay()
     want = _as_tuple(ps.patch_sample_plain(pyr[0], c2, s, 8, chip_smoke.PS_PAD, grad_units=gu))
@@ -346,9 +347,9 @@ def test_imu_propagate_replays_in_a_cuda_graph(cuda_device):
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     before = _launches("imu_propagate")
-    with torch.cuda.graph(graph):
+    with timing.graph_counts() as launches, torch.cuda.graph(graph):
         out = call()
-    assert _launches("imu_propagate") == before + 1
+    assert _launches("imu_propagate") == before and dict(launches) == {"imu_propagate.launches": 1}
     for dst, src in zip(args[0] + args[1] + args[2:], new[0] + new[1] + new[2:]):
         dst.copy_(src)
     graph.replay()
@@ -374,3 +375,68 @@ def test_imu_propagate_rejects_bad_inputs(cuda_device):
         with pytest.raises(ValueError):
             imu.propagate(*args)
     assert _launches("imu_propagate") == before
+
+
+def _counted(fn):
+    """fn()'s result and what it added to the port's counters."""
+    before = timing.counters()
+    out = fn()
+    return out, timing.counter_delta(timing.counters(), before)
+
+
+@pytest.mark.cuda
+def test_photometric_update_graphs_equal_the_eager_loop(cuda_device):
+    """The flagship rig's rendered 640x512 room frames (N = 208): the
+    update through its level graphs equals the eager trip loop
+    (tests/vio_trip_loop.py) bit for bit, posterior, covariance, both
+    errors and trips, and so does `vio_update`. The first frame after the
+    cache is emptied captures the three levels (each after one warm-up
+    trip, one more `patch_sample` launch); two frames of other data
+    replay without a capture, counting the trips, flag reads and launches
+    the eager loop counts; the launches counted are the `patch_sample`
+    kernel runs the device trace records."""
+    import vio_trip_loop
+
+    from fastlivo_tpu_torch.models import pipeline as pl
+    from fastlivo_tpu_torch.models import vio
+    from fastlivo_tpu_torch.state import NavState
+
+    cfg = chip_smoke.flagship_config()
+    run = chip_smoke.LivoRun(cfg, chip_smoke.Scene(n_raw=16384, imu_m=32, seed=0), cuda_device)
+    inputs = run.make_inputs(6)
+    for inp in inputs[:3]:  # the visual map's first points and observations
+        run.pair(inp)
+    vio._TRIP_GRAPHS.clear()
+    for k, inp in enumerate(inputs[3:]):
+        cloud, _ = run.lio(inp)
+        state_prop, _ = pl._propagate(run.state, inp["vwin"], cfg)
+        img = inp["img"]
+        pyr = vio.pyramid_padded(img, max(cfg.vio_cfg.levels, cfg.vm_cfg.levels))
+        sel, _ = vio.select(state_prop, run.vmap, img, cloud[0], cloud[1], cfg.cam, run.rot_ci, run.z3,
+                            cfg.vm_cfg, cfg.vio_cfg, pyr)
+        assert sel.pt_pos.shape[0] == 208 and int(sel.valid.sum()) >= 20
+        args = (state_prop, sel, img, cfg.cam, run.rot_ci, run.z3, cfg.vio_cfg, pyr)
+        (want, w0, w1), want_n = _counted(lambda: vio_trip_loop.loop_photometric_update(*args))
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            (got, g0, g1), got_n = _counted(lambda: vio.photometric_update(*args))
+            torch.cuda.synchronize()
+        ran = chip_smoke.kernel_runs(prof.key_averages(), chip_smoke.PS_KERNEL_RE)
+        assert ran == got_n["patch_sample.launches"], (k, ran, got_n)
+        for name in NavState._fields:
+            assert chip_smoke.same_bits(getattr(got, name), getattr(want, name)), (k, name)
+        assert chip_smoke.same_bits(g0, w0) and chip_smoke.same_bits(g1, w1), k
+        trips = want_n["vio.trips"]
+        assert trips == want_n["sync.vio_flags"] >= 3 and want_n["patch_sample.launches"] == trips
+        captures = 3 if k == 0 else 0
+        assert got_n == dict(want_n, **{
+            "vio.graph_replays": trips, "patch_sample.launches": trips + captures,
+        }, **({"vio.graph_captures": 3} if captures else {})), (k, got_n, want_n)
+
+        post, run.vmap, info = vio.vio_update(state_prop, run.vmap, img, cloud[0], cloud[1], cfg.cam,
+                                              run.rot_ci, run.z3, cfg.vm_cfg, cfg.vio_cfg)
+        for name in NavState._fields:
+            assert chip_smoke.same_bits(getattr(post, name), getattr(want, name)), (k, name)
+        assert chip_smoke.same_bits(info.error_before, w0) and chip_smoke.same_bits(info.error_after, w1)
+        run.state = post
+    assert len(vio._TRIP_GRAPHS) == 1

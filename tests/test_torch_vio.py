@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import chip_smoke as scene_mod
+import vio_trip_loop
 from fastlivo_tpu.io import render as JR
 from fastlivo_tpu.maps import visual_map as JVM
 from fastlivo_tpu.models import vio as JVIO
@@ -33,6 +34,8 @@ from fastlivo_tpu_torch import convert
 from fastlivo_tpu_torch.maps import visual_map as TVM
 from fastlivo_tpu_torch.models import vio as TVIO
 from fastlivo_tpu_torch.ops.camera import Pinhole as TPinhole
+from fastlivo_tpu_torch.state import NavState as TNav
+from fastlivo_tpu_torch.utils import timing
 
 torch.set_num_threads(1)
 
@@ -210,3 +213,74 @@ def test_closest_view_obs_resolves_revisits():
     # The f32 cosine (the JAX package's form) ties and misses most revisits.
     cos32 = torch.sum(_t((u).astype(np.float32)) * _t(v.astype(np.float32))[:, None], -1)
     assert (torch.argmax(cos32[:-64], -1).numpy() != want[:-64]).mean() > 0.3
+
+
+def _counted(fn):
+    """fn()'s result and what it added to the port's counters."""
+    before = timing.counters()
+    out = fn()
+    return out, timing.counter_delta(timing.counters(), before)
+
+
+@pytest.mark.parametrize("off,max_iterations", [((0.015, -0.01, 0.01), 10), ((0.05, 0.03, -0.04), 10),
+                                                ((0.05, 0.03, -0.04), 2)])
+def test_factored_trips_equal_the_loop_bitwise(world, off, max_iterations):
+    """`photometric_update` over `gn_trip` gives the loop it was factored
+    from (tests/vio_trip_loop.py) bit for bit on the CPU: posterior,
+    covariance, both errors, the trips and flag reads; no graph is made."""
+    cfg = TVIO.VioConfig(max_iterations=max_iterations)
+    prior = convert.nav_state_from_numpy(dict(world["prior"], pos=(world["truth"] + off).astype(np.float32)), "cpu")
+    sel, _ = TVIO.select(
+        prior, convert.visual_map_from_numpy(world["vmap"], "cpu"), _t(world["img"]), _t(world["cloud"]),
+        _t(world["mask"]), TCAM, _t(ROT_CI), _t(Z3), TVM_CFG, cfg,
+    )
+    args = (prior, sel, _t(world["img"]), TCAM, _t(ROT_CI), _t(Z3), cfg)
+    n_graphs = len(TVIO._TRIP_GRAPHS)
+    (want, w0, w1), want_counts = _counted(lambda: vio_trip_loop.loop_photometric_update(*args))
+    (got, g0, g1), got_counts = _counted(lambda: TVIO.photometric_update(*args))
+    for name in TNav._fields:
+        assert scene_mod.same_bits(getattr(got, name), getattr(want, name)), name
+    assert scene_mod.same_bits(g0, w0) and scene_mod.same_bits(g1, w1)
+    assert got_counts == want_counts and want_counts["vio.trips"] == want_counts["sync.vio_flags"] >= 3
+    assert "vio.graph_replays" not in got_counts and "vio.graph_captures" not in got_counts
+    assert len(TVIO._TRIP_GRAPHS) == n_graphs
+
+
+def _trip_frame(n):
+    f32 = torch.float32
+    return TVIO.TripFrame(
+        prop=TNav.identity(f32, "cpu"), p_inv=torch.eye(18), pt_pos=torch.zeros(n, 3),
+        valid=torch.ones(n, dtype=torch.bool), ref_patch=torch.zeros(n, 3, 64), scale=torch.ones(n),
+        strides=torch.ones(n, dtype=torch.int32), rot_ci=torch.eye(3), t_ci=torch.zeros(3),
+    )
+
+
+def _padded_pyramid(h, w):
+    return [torch.zeros(h + 64, w + 64), torch.zeros(h // 2 + 64, w // 2 + 64), torch.zeros(h // 4 + 64, w // 4 + 64)]
+
+
+AVIA_CAM = TPinhole(640, 512, 431.8, 431.8, 320.0, 256.0)
+
+
+@pytest.mark.parametrize("change", ["none", "n", "level_shape", "vio_config", "pinhole", "ref_levels", "pt_dtype"])
+def test_trip_graph_key(change):
+    """The key of the graph cache: equal for equal shapes and settings
+    (fresh tensors), another for another N, level shape, VioConfig,
+    Pinhole, stored patch level count or input dtype."""
+    base = TVIO.trip_graph_key(_trip_frame(208), _padded_pyramid(512, 640), AVIA_CAM, TVIO.VioConfig())
+    frame, pyr, cam, cfg = _trip_frame(208), _padded_pyramid(512, 640), AVIA_CAM, TVIO.VioConfig()
+    if change == "n":
+        frame = _trip_frame(207)
+    elif change == "level_shape":
+        pyr[2] = torch.zeros(193, 224)
+    elif change == "vio_config":
+        cfg = TVIO.VioConfig(max_iterations=5)
+    elif change == "pinhole":
+        cam = TPinhole(640, 512, 431.8, 431.8, 320.0, 256.5)
+    elif change == "ref_levels":
+        frame = frame._replace(ref_patch=torch.zeros(208, 1, 64))
+    elif change == "pt_dtype":
+        frame = frame._replace(pt_pos=torch.zeros(208, 3, dtype=torch.float64))
+    key = TVIO.trip_graph_key(frame, pyr, cam, cfg)
+    assert (key == base) == (change == "none")
+    assert hash(key) == hash(TVIO.trip_graph_key(frame, pyr, cam, cfg))
