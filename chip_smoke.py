@@ -79,9 +79,6 @@ result line without a CUDA device):
    6b. the bag's first 2 s rewritten with lz4 (the port's `io.lz4f`) and
        bz2 chunks: each converts to the uncompressed bag's log byte for
        byte.
-   6c. the 6a log's first 30 scan-end groups with lio.scan_batch 1, 4 and
-       0: the trajectory rows equal the 6a run's first rows within 1e-6 m;
-       host syncs per scan-end group in each mode.
    6d. feature selection: the 6a bag's first 3 s with every sweep
        ray-cast ring by ring (24,000 points, consecutive points neighbours
        on a surface, as a 16-ring spinning LiDAR records them), converted,
@@ -1847,10 +1844,6 @@ def street_frames(device, width, height):
 BAG_TOPICS = dict(lidar="/livox/lidar", imu="/livox/imu", img="/left_camera/image")
 BAG_CHUNK_BYTES = 768 * 1024  # rosbag record's default chunk threshold
 BAG_CODEC_S = 2.0  # 6b rewrites this much of the bag with lz4 and bz2 chunks
-BATCH_SCANS = 30  # 6c: scan-end groups per batched run
-BATCH_MODES = (1, 4, 0)
-BATCH_TOL_M = 1e-6  # tests/test_scan_batch.py:92,134
-BATCH_WARM_GROUPS = 10  # scan-end groups of static init and EKF warm-up, not counted for syncs
 FEATURE_SCANS = 20  # 6d: scan-end groups with feature selection
 FEATURE_S = 3.0  # 6d: seconds of the 6a bag rewritten with ring sweeps
 FEATURE_RINGS, FEATURE_PER_RING = 16, 1500  # 24,000 points per sweep, as 6a's
@@ -2026,60 +2019,13 @@ def decode_both(log, cfg):
                 numpy_ms_per_scan=secs["numpy"] * 1e3 / n_scans)
 
 
-class PipelineSyncs:
-    """Counts host synchronizations inside LivoPipeline.process_scan and
-    flush_scans while the block runs (torch's sync debug mode is on only
-    inside those calls): one (method, count) per outermost call, in order."""
-
-    NAMES = ("process_scan", "flush_scans")
-
-    def __enter__(self):
-        from fastlivo_tpu_torch.models.pipeline import LivoPipeline
-
-        self.cls, self.calls, self._depth = LivoPipeline, [], 0
-        self._saved = {n: getattr(LivoPipeline, n) for n in self.NAMES}
-        for name, fn in self._saved.items():
-            setattr(LivoPipeline, name, self._wrap(name, fn))
-        return self
-
-    def __exit__(self, *exc):
-        for name, fn in self._saved.items():
-            setattr(self.cls, name, fn)
-
-    def _wrap(self, name, fn):
-        def call(pipe, *args, **kw):
-            if self._depth:
-                return fn(pipe, *args, **kw)
-            self._depth += 1
-            try:
-                n, out = syncs_and_result(lambda: fn(pipe, *args, **kw))
-            finally:
-                self._depth -= 1
-            self.calls.append((name, n))
-            return out
-
-        return call
-
-    def per_scan_end(self, skip=BATCH_WARM_GROUPS):
-        """Syncs per scan-end group after the first `skip` (static init and
-        warm-up), the flushes that follow them included."""
-        seen = steps = total = 0
-        for name, n in self.calls:
-            if name == "process_scan":
-                seen += 1
-                steps += seen > skip
-            if seen > skip:
-                total += n
-        return total / max(steps, 1)
-
-
 def phase_bag(device, log_dir):
     """6a: the phase-4 room log written as a bag (Avia CustomMsg 24,000
     points per scan, 200 Hz IMU, 640x512 mono8 at 10 Hz, uncompressed
     chunks), converted by the port's bag_to_flvo, decoded both ways, and
     run by run.run_log with configs/avia_livo.yaml at its full widths (rig
     overrides only); launch counts reset just before the run and read just
-    after. Then 6b-6e on the same bag and log."""
+    after. Then 6b, 6d and 6e on the same bag and log."""
     import torch
 
     from fastlivo_tpu_torch import run
@@ -2127,7 +2073,6 @@ def phase_bag(device, log_dir):
     print(json.dumps({"phase6a_bag": out["6a"]}), flush=True)
     out["6b"] = phase_bag_codecs(msgs, log_dir)
     del msgs
-    out["6c"] = phase_bag_batching(log, pipe, device, log_dir)
     out["6d"] = phase_bag_features(seq, device, log_dir)
     out["6e"] = phase_bag_colorize(pipe, seq, device)
     return out
@@ -2162,42 +2107,6 @@ def phase_bag_codecs(msgs, log_dir):
             raise AssertionError(f"6b: the {comp} bag converts to another log than the uncompressed one")
     out["identical_logs"] = True
     out["log_mb"] = len(logs["none"]) / 1e6
-    return out
-
-
-def phase_bag_batching(log, ref, device, log_dir):
-    """6c: the 6a log's first BATCH_SCANS scan-end groups with lio.scan_batch
-    1, 4 and 0: the trajectory rows (scan-end and image rows, the same
-    stamps in the same order) equal the 6a run's first rows within
-    BATCH_TOL_M; host syncs per scan-end group counted in each mode."""
-    import torch
-
-    from fastlivo_tpu_torch import run
-
-    ref_t = [t for t, _, _ in ref.trajectory]
-    ref_p = np.stack([p for _, p, _ in ref.trajectory])
-    out = {}
-    for batch in BATCH_MODES:
-        cfg = cli_config({"lio.scan_batch": batch})
-        t0 = time.perf_counter()
-        with PipelineSyncs() as syncs:
-            pipe = run.run_log(log, cfg, out_dir=os.path.join(log_dir, f"batch_{batch}"),
-                               max_scans=BATCH_SCANS, progress=False, device=device)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        rows = pipe.trajectory
-        n = len(rows)
-        pos = np.stack([p for _, p, _ in rows])
-        err = float(np.abs(pos - ref_p[:n]).max())
-        if n < BATCH_SCANS or [t for t, _, _ in rows] != ref_t[:n] or not err <= BATCH_TOL_M:
-            raise AssertionError(f"6c: scan_batch {batch}: {n} rows, max position gap {err} m")
-        if pipe.health["rejected"] or pipe._pending:
-            raise AssertionError(f"6c: scan_batch {batch}: health {pipe.health}, {len(pipe._pending)} pending")
-        out[f"scan_batch_{batch}"] = dict(
-            rows=n, lio_updates=len(pipe.n_effective), vio_updates=len(pipe.n_selected),
-            max_pos_gap_m=err, syncs_per_scan_end_group=syncs.per_scan_end(),
-            syncs_per_call=syncs.calls, wall_s=wall_s,
-        )
     return out
 
 

@@ -12,8 +12,8 @@ The chain per scan is the JAX package's:
 `LivoPipeline` also carries the back end: GNSS fusion (an (18,18)/(18,)
 observation block per scan, linearized at the propagated prior), the STD
 loop-closure back end with its pose graph and visual gate, loop-corrected
-map re-anchoring (`reanchor_map`), the annotated-frame dump and the
-deferred-fetch scan batching of `lio.scan_batch`.
+map re-anchoring (`reanchor_map`) and the annotated-frame dump. Every
+update's summary is read back on the host as the update ends.
 
 Multi-device (`parallel`): one process per rank under torch.distributed,
 every rank running the same pipeline on the same log. `axis_name` is a
@@ -285,7 +285,8 @@ def lio_scan_multi(
     """K scan-end measurement updates chained: `scans` is a ScanInput whose
     leaves carry a leading K axis. Returns (posterior state, map, summaries
     (K, 11), (world clouds (K, N, 3), masks (K, N))), the results of K
-    sequential `lio_scan_step` calls."""
+    sequential `lio_scan_step` calls (the JAX package's scan-batched step;
+    `LivoPipeline` calls `lio_scan_step` once per scan)."""
     summaries, clouds, masks = [], [], []
     for k in range(scans.pts.shape[0]):
         scan = ScanInput(
@@ -392,13 +393,10 @@ class LivoPipeline:
 
     `device=None` means the GPU and raises without one. Every processed
     update leaves one small summary (pose, and the effective count or the
-    selected-patch count), kept in `trajectory`, `n_effective` and
-    `n_selected`. With `lio.scan_batch` 1 each summary is read back when
-    its update runs. Otherwise (and without GNSS, whose observation needs
-    each scan's prior on the host) the updates are dispatched without a
-    read: their summaries go into one device buffer, read in one copy by
-    `flush_scans` every `scan_batch` scans, or, with 0, only at `finish`,
-    a checkpoint or `reanchor_map`.
+    selected-patch count), read back when the update ends and kept in
+    `trajectory`, `n_effective` and `n_selected`. `lio.scan_batch` must be
+    1: the JAX package's deferred reads of K summaries at a time are not
+    ported.
 
     Multi-device (`cfg.parallel`): inside an initialised torch.distributed
     group every rank builds this pipeline on the same log and the scan step
@@ -412,6 +410,11 @@ class LivoPipeline:
     decision and corrections on every rank. Only rank 0 writes files."""
 
     def __init__(self, cfg, dtype=torch.float32, device=None):
+        if cfg.lio.scan_batch != 1:
+            raise ValueError(
+                f"lio.scan_batch is {cfg.lio.scan_batch}; the port reads each update's "
+                "summary when the update ends and supports only lio.scan_batch 1"
+            )
         self.device = _device.resolve(device)
         self.cfg = cfg
         self.step_cfg = StepConfig.from_config(cfg)
@@ -482,24 +485,6 @@ class LivoPipeline:
             )
             if cfg.gnss.rtk_file:
                 self.gnss.load_rtk_file(cfg.gnss.rtk_file)
-
-        # Deferred-fetch batching. The pending queue holds, in dispatch
-        # order, ("scan", t_abs, cloud, mask, last_img) and ("img", t_abs);
-        # row i of _sum_buf is entry i's summary (zero-padded to 11). When a
-        # scan is rejected mid-batch, the VIO frames dispatched after it see
-        # its masked-off world cloud (an empty photometric update) instead
-        # of the host rollback to the last accepted cloud; both recover at
-        # the next accepted scan. Clouds are kept for the loop back end only:
-        # with scan_batch 0 a whole run's clouds would pin device memory.
-        self.scan_batch = int(cfg.lio.scan_batch)
-        self._batch_eligible = self.scan_batch != 1 and not cfg.gnss.gnss_en
-        self._pending: list = []
-        self._pending_n_scans = 0
-        self._retain_clouds = self.loop_backend is not None
-        self._sum_cap = 65536  # deferred measurements per flush (1.8 h at 10 Hz)
-        self._batch_prev_cloud = None
-        if self._batch_eligible:
-            self._sum_buf = torch.zeros((self._sum_cap, 11), dtype=dtype, device=dev)
 
     def _make_mesh(self, par):
         """The mesh of cfg.parallel inside an initialised process group, or
@@ -647,24 +632,6 @@ class LivoPipeline:
             self.first_scan = False
             return None
 
-        if self._batch_eligible:
-            # Dispatch now, read the summary at the next flush.
-            if self._pending_n_scans == 0:
-                # Rollback target if every scan of this batch is rejected.
-                self._batch_prev_cloud = (self.world_cloud, self.world_mask)
-            self.state, self.map, _, (self.world_cloud, self.world_mask), summary = self._lio_step(scan)
-            timing.count("pipeline.lio_updates")
-            self._epoch_stamps.append(t_abs)
-            self._defer(summary)
-            if self._retain_clouds:
-                self._pending.append(("scan", t_abs, self.world_cloud, self.world_mask, self._last_vio_img))
-            else:
-                self._pending.append(("scan", t_abs, None, None, None))
-            self._pending_n_scans += 1
-            if len(self._pending) >= self._sum_cap or 0 < self.scan_batch <= self._pending_n_scans:
-                self.flush_scans()
-            return None
-
         prev_cloud = (self.world_cloud, self.world_mask)
         extra = None
         if self.gnss is not None:
@@ -728,24 +695,11 @@ class LivoPipeline:
         timing.count("pipeline.vio_updates")
         if self.cfg.runtime.img_save_en and self.rank == 0:
             self._dump_annotated_frame(img)
-        if self._batch_eligible:
-            self.vio_before_lio += not (self.n_effective or self._pending_n_scans)
-            self._defer(summary)
-            self._pending.append(("img", t_abs))
-            # Backstop for image-heavy streams; the scan count normally sets
-            # the flush cadence.
-            n = len(self._pending)
-            if n >= self._sum_cap or (self.scan_batch > 0 and n >= 8 * self.scan_batch + 8):
-                self.flush_scans()
-            return None
-        self._selected(int(self._record(t_abs, summary)[7]))
+        n_sel = int(self._record(t_abs, summary)[7])
+        self.n_selected.append(n_sel)
+        timing.count("vio.selected", n_sel)
         self.vio_before_lio += not self.n_effective
         return info
-
-    def _selected(self, n: int):
-        """A VIO update's selected-patch count, read back with its summary."""
-        self.n_selected.append(n)
-        timing.count("vio.selected", n)
 
     def _dump_annotated_frame(self, img: torch.Tensor):
         """Keypatch-annotated frame to <runtime.out_dir>/img/ (the
@@ -763,56 +717,6 @@ class LivoPipeline:
         )
         self._img_frame_idx += 1
 
-    def _defer(self, summary: torch.Tensor):
-        """Queue the summary of the update about to join the pending queue
-        (a device-side copy, no host read)."""
-        self._sum_buf[len(self._pending), : summary.shape[0]] = summary
-
-    def flush_scans(self):
-        """Drain the pending (already dispatched) updates: one host read of
-        their summaries, then the per-update bookkeeping in dispatch order
-        (trajectory, counters, health, the loop back end on accepted scans,
-        the world-cloud rollback)."""
-        if not self._pending:
-            return
-        pending, self._pending = self._pending, []
-        self._pending_n_scans = 0
-        # A copy: on the CPU, .cpu() would alias the buffer the next
-        # batch overwrites.
-        timing.sync_point("readback")
-        with timing.span("pipeline.readback"):
-            rows = self._sum_buf[: len(pending)].cpu().numpy().copy()
-        last_ok = None
-        for k, entry in enumerate(pending):
-            kind, t_abs = entry[0], entry[1]
-            s = rows[k]
-            self.trajectory.append((t_abs, s[0:3], s[3:7]))
-            if kind == "img":
-                self._selected(int(s[7]))
-                continue
-            _, _, cloud, mask, img = entry
-            n_eff, accepted = int(s[7]), bool(s[9] > 0.5)
-            self.n_effective.append(n_eff)
-            if n_eff < self._min_effective:
-                self.health["low_constraint"] += 1
-            if not accepted:
-                self.health["rejected"] += 1
-                self.health["resets"] += 1
-                continue
-            last_ok = k
-            if cloud is not None:  # kept only for the loop back end
-                rot = so3.quat_to_rot(torch.as_tensor(s[3:7], dtype=torch.float64)).numpy()
-                timing.sync_point("loop_cloud")
-                self.loop_backend.on_scan(rot, s[0:3], cloud[mask].cpu().numpy(), stamp=t_abs, img=img)
-        if not self._retain_clouds:
-            # No clouds were kept; world_cloud already holds the last
-            # dispatched scan's (empty-masked if it was rejected).
-            return
-        if last_ok is not None:
-            self.world_cloud, self.world_mask = pending[last_ok][2:4]
-        elif any(e[0] == "scan" for e in pending):
-            self.world_cloud, self.world_mask = self._batch_prev_cloud
-
     def reanchor_map(self) -> bool:
         """Re-anchor the live voxel arena with the loop-corrected keyframe
         poses: every arena point moves by the rigid correction of the
@@ -828,7 +732,6 @@ class LivoPipeline:
         if self.mesh is None:
             corr = self._loop_corrections()
         else:
-            self.flush_scans()
             if self.loop_backend is not None:
                 self.loop_backend.drain()
             corr = self._replicate_corrections(self._loop_corrections() if self.rank == 0 else None)
@@ -863,7 +766,6 @@ class LivoPipeline:
             return None
         if not self._epoch_stamps:
             return None
-        self.flush_scans()
         g = self.loop_backend.graph
         rots_c, trans_c = self.loop_backend.corrected_trajectory()
         rots_d = np.asarray(g.rots)
@@ -918,7 +820,6 @@ class LivoPipeline:
         back end ran) and `map.pcd` to out_dir (when given; on rank 0 only,
         every rank gathering the map cloud). Returns the corrected keyframe
         trajectory (rots, trans), or None."""
-        self.flush_scans()
         corrected = None
         if self.loop_backend is not None:
             self.loop_backend.finish()

@@ -160,6 +160,20 @@ def _cell_argmin(values: torch.Tensor, cells: torch.Tensor, n_cells: int):
     return torch.clamp(winner[:n_cells], 0, n - 1), has
 
 
+def _exposure_fit(val, ref, valid):
+    """The affine exposure model (a, b) that maps the sampled patches `val`
+    (N, P^2) onto the reference patches `ref` over the `valid` rows: the
+    least-squares gain, clamped to [0.5, 2], and the offset of the means."""
+    w = valid.to(val.dtype)[:, None] * torch.ones_like(val)
+    n_w = torch.clamp(torch.sum(w), min=1.0)
+    mv = torch.sum(val * w) / n_w
+    mr = torch.sum(ref * w) / n_w
+    cov_vr = torch.sum((val - mv) * (ref - mr) * w) / n_w
+    var_v = torch.sum((val - mv) ** 2 * w) / n_w
+    a_exp = torch.clamp(cov_vr / torch.clamp(var_v, min=1e-6), 0.5, 2.0)
+    return a_exp, mr - a_exp * mv
+
+
 def select(
     state: NavState,
     vmap: vmap_mod.VisualMap,
@@ -286,14 +300,8 @@ def select(
         img_pad, sel_uv, torch.round(scale).to(torch.int32), cfg.patch_size, _SAMPLE_PAD
     )
     if cfg.exposure_en:
-        wsel = valid.to(dtype)[:, None] * torch.ones_like(cur_patch)
-        n_w = torch.clamp(torch.sum(wsel), min=1.0)
-        mv = torch.sum(cur_patch * wsel) / n_w
-        mr = torch.sum(warped * wsel) / n_w
-        cov_vr = torch.sum((cur_patch - mv) * (warped - mr) * wsel) / n_w
-        var_v = torch.sum((cur_patch - mv) ** 2 * wsel) / n_w
-        a_exp = torch.clamp(cov_vr / torch.clamp(var_v, min=1e-6), 0.5, 2.0)
-        cur_patch = a_exp * cur_patch + (mr - a_exp * mv)
+        a_exp, b_exp = _exposure_fit(cur_patch, warped, valid)
+        cur_patch = a_exp * cur_patch + b_exp
     err = torch.sum((warped - cur_patch) ** 2, dim=-1)
     valid = valid & (err <= cfg.outlier_threshold * cfg.patch_size**2)
     if cfg.ncc_en:
@@ -360,14 +368,7 @@ def _residuals_and_h(rot, pos, frame: TripFrame, img_pad, level: int, cam: Pinho
     )
     ref = frame.ref_patch[:, level, :]
     if cfg.exposure_en:
-        w = valid.to(dtype)[:, None] * torch.ones_like(val)
-        n_w = torch.clamp(torch.sum(w), min=1.0)
-        mv = torch.sum(val * w) / n_w
-        mr = torch.sum(ref * w) / n_w
-        cov_vr = torch.sum((val - mv) * (ref - mr) * w) / n_w
-        var_v = torch.sum((val - mv) ** 2 * w) / n_w
-        a_exp = torch.clamp(cov_vr / torch.clamp(var_v, min=1e-6), 0.5, 2.0)
-        b_exp = mr - a_exp * mv
+        a_exp, b_exp = _exposure_fit(val, ref, valid)
         val = a_exp * val + b_exp
         du = a_exp * du
         dv = a_exp * dv

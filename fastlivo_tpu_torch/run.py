@@ -178,9 +178,6 @@ def run_log(
                     f"{pos[2]:+7.2f}) n_eff={pipe.n_effective[-1]}"
                 )
             if checkpoint_every and checkpoint_path and n_scans % checkpoint_every == 0:
-                # Batched mode: apply the queued updates first, so the saved
-                # state matches the n_scans counter.
-                pipe.flush_scans()
                 ckpt.save_pipeline(checkpoint_path, pipe, meta={"n_scans": n_scans})
     trace = None
     if profile_dir is not None:

@@ -146,14 +146,18 @@ def test_training_entry_points_need_a_gpu_unless_told(name):
         ({"parallel.n_devices": 3}, r"lio.max_points \(16384\) must be divisible by parallel.n_devices \(3\)"),
         ({"parallel.n_devices": 2, "parallel.map_sharded": True},
          r"n_devices is 2 but no torch.distributed process group .* world of 1"),
+        ({"lio.scan_batch": 4}, r"lio.scan_batch is 4; .* supports only lio.scan_batch 1"),
+        ({"lio.scan_batch": 0}, r"lio.scan_batch is 0; .* supports only lio.scan_batch 1"),
     ],
-    ids=["no_group", "n_hosts_without_map_sharded", "budget_not_divisible", "no_group_map_sharded"],
+    ids=["no_group", "n_hosts_without_map_sharded", "budget_not_divisible", "no_group_map_sharded",
+         "scan_batch_4", "scan_batch_0"],
 )
 def test_out_of_scope_switches_raise(setting, match):
     """Multi-device configurations raise, never degrade to one rank, where
     the world does not fit them: n_devices > 1 outside a process group of
     that size (naming both sizes), n_hosts > 1 without map_sharded, and a
-    point budget the world size does not divide."""
+    point budget the world size does not divide; and lio.scan_batch other
+    than 1 (the port reads each update's summary as the update ends)."""
     from fastlivo_tpu_torch.models.pipeline import LivoPipeline
     from fastlivo_tpu_torch.utils.config import load_config
 
@@ -165,8 +169,8 @@ def test_out_of_scope_switches_raise(setting, match):
 def test_out_of_scope_runner_and_reanchor_raise(tmp_path):
     """No NotImplementedError is left in the port; map_sharded without a
     process group runs on one device (as in the JAX package); feature
-    extraction and scan batching run, and reanchor_map, without a loop back
-    end, has nothing to apply."""
+    extraction runs, and reanchor_map, without a loop back end, has nothing
+    to apply."""
     from fastlivo_tpu_torch import run
     from fastlivo_tpu_torch.io import logio, synthetic
     from fastlivo_tpu_torch.models.pipeline import LivoPipeline
@@ -178,7 +182,7 @@ def test_out_of_scope_runner_and_reanchor_raise(tmp_path):
     one = LivoPipeline(load_config(None, {"map.capacity": 1 << 10, "vio.img_enable": False,
                                           "parallel.map_sharded": True}), device="cpu")
     assert one.mesh is None and one.n_map_shards == 1 and not one.step_cfg.map_sharded
-    cfg = load_config(None, {"map.capacity": 1 << 10, "vio.img_enable": False, "lio.scan_batch": 0,
+    cfg = load_config(None, {"map.capacity": 1 << 10, "vio.img_enable": False,
                              "preprocess.feature_extract_en": True, "imu.init_count": 5,
                              "lio.max_points": 1024, "imu.imu_int_frame": 32})
     assert LivoPipeline(cfg, device="cpu").reanchor_map() is False
@@ -186,7 +190,7 @@ def test_out_of_scope_runner_and_reanchor_raise(tmp_path):
     logio.write_sequence(log, synthetic.generate(duration=0.6, imu_rate=100.0, pts_per_scan=500, seed=1,
                                                  device="cpu"))
     pipe = run.run_log(log, cfg, progress=False, device="cpu")
-    assert len(pipe.timer.samples["features"]) == 6 and not pipe._pending
+    assert len(pipe.timer.samples["features"]) == 6
 
 
 def test_back_end_constructs_with_jax_blocked(tmp_path):

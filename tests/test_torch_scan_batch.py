@@ -1,5 +1,5 @@
-"""Scan batching in the port: `lio_scan_multi` (K chained scan-end steps)
-and LivoPipeline's deferred-fetch batching (`lio.scan_batch` K > 1 and 0).
+"""Chained scan-end steps in the port, and LivoPipeline's rollback of a
+rejected scan.
 
 - `lio_scan_multi` with the surfel model on chip_smoke.Scene's room,
   scan-end groups only, at tests/test_torch_pipeline.py's sizes, against
@@ -7,15 +7,13 @@ and LivoPipeline's deferred-fetch batching (`lio.scan_batch` K > 1 and 0).
   1e-3 rad, n_effective within 2%, the health-gate decision exactly; the
   final map's counts exactly), and bit for bit against the port's own K
   sequential `lio_scan_step` calls.
-- LivoPipeline with scan_batch 4 and 0 against 1, for LIO and for LIVO
-  (the recipes of tests/test_scan_batch.py:67 and :97 on the port's
-  generator): the same trajectory rows (scan-end and image rows, the
-  same stamps in the same order) within 1e-6 m, the same counters.
-- A batched run checkpointed mid-batch and resumed writes the straight
-  run's tum.txt bit for bit.
+- LivoPipeline, for LIO and for LIVO on the port's generator: once the
+  health gate rejects every scan (lio_cfg.max_jump_m 0 swapped in after
+  some accepted scans), each rejected scan rolls the world cloud back to
+  the last accepted scan's, and every later VIO frame reads that cloud.
 """
 
-import os
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -30,8 +28,6 @@ from fastlivo_tpu.models import pipeline as JP
 from fastlivo_tpu.models.imu import ImuWindow as JImu
 from fastlivo_tpu.state import NavState as JNav
 from fastlivo_tpu_torch import convert
-from fastlivo_tpu_torch import run as trun
-from fastlivo_tpu_torch.io import logio as TLOG
 from fastlivo_tpu_torch.io import synthetic as TSYN
 from fastlivo_tpu_torch.io.sync import MeasurementSynchronizer, WindowBuilder
 from fastlivo_tpu_torch.maps import voxel_map as TV
@@ -44,9 +40,7 @@ from fastlivo_tpu_torch.utils.config import load_config
 
 torch.set_num_threads(2)
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K_BATCH = 4
-BATCH_TOL_M = 1e-6
 
 
 def _step_cfgs():
@@ -160,9 +154,10 @@ def test_lio_scan_multi_matches_jax_and_sequential():
     np.testing.assert_allclose(t_st.pos.numpy(), np.asarray(j_st.pos), rtol=0, atol=2e-3)
 
 
-def drive(seq, cfg):
+def drive(seq, cfg, before_update):
     """Push a sequence's records in time order through the synchronizer and
-    the pipeline (tests/test_torch_livo_pipeline.py's loop), then flush."""
+    the pipeline (tests/test_torch_livo_pipeline.py's loop), calling
+    `before_update(pipe, is_scan)` before each update."""
     pipe = LivoPipeline(cfg, device="cpu")
     sync = MeasurementSynchronizer(img_enabled=cfg.vio.img_enable)
     builder = WindowBuilder(cfg.lio.max_points * 2, cfg.imu.imu_int_frame)
@@ -181,116 +176,59 @@ def drive(seq, cfg):
         while (group := sync.next_group()) is not None:
             scan_input, t_abs = builder.build(group)
             scan_input = scan_input._replace(acc_scale=np.float32(pipe.acc_scale))
+            before_update(pipe, group.is_lidar_end)
             if group.is_lidar_end:
                 pipe.process_scan(scan_input, t_abs)
             else:
                 pipe.process_image(scan_input, group.measures[-1].img.img, t_abs)
-    pipe.flush_scans()
     return pipe
 
 
-def same_runs(a, b):
-    ta = np.asarray([t for t, _, _ in a.trajectory])
-    tb = np.asarray([t for t, _, _ in b.trajectory])
-    np.testing.assert_array_equal(ta, tb)
-    pa = np.stack([p for _, p, _ in a.trajectory])
-    pb = np.stack([p for _, p, _ in b.trajectory])
-    np.testing.assert_allclose(pa, pb, rtol=0, atol=BATCH_TOL_M)
-    qa = np.stack([q for _, _, q in a.trajectory])
-    qb = np.stack([q for _, _, q in b.trajectory])
-    np.testing.assert_allclose(qa, qb, rtol=0, atol=1e-6)
-    assert a.n_effective == b.n_effective and a.n_selected == b.n_selected
-    assert a.health == b.health and a.vio_before_lio == b.vio_before_lio
-    assert a._epoch_stamps == b._epoch_stamps
-    return len(ta)
-
-
 LIO_SETS = {"lio.max_points": 4096, "map.capacity": 1 << 14, "imu.imu_int_frame": 32, "vio.img_enable": False}
+CAM = (320, 256, 200.0, 200.0, 160.0, 128.0)
+LIVO_SETS = {"lio.max_points": 4096, "map.capacity": 1 << 14, "imu.imu_int_frame": 32, "vio.img_enable": True,
+             "vio.max_visual_points": 4096, "vio.max_obs_per_point": 4,
+             "camera.width": CAM[0], "camera.height": CAM[1], "camera.fx": CAM[2], "camera.fy": CAM[3],
+             "camera.cx": CAM[4], "camera.cy": CAM[5], "camera.rcl": tuple(TSYN.R_IC_FORWARD.T.reshape(-1).tolist()),
+             "camera.pcl": (0.0, 0.0, 0.0), "extrinsics.extrinsic_t": (0.0, 0.0, 0.0)}
+N_ACCEPTED = 5  # LIO updates accepted before every later one is rejected
 
 
-@pytest.fixture(scope="module")
-def lio_seq():
+def _lio_seq():
     return TSYN.generate(duration=3.0, imu_rate=100.0, scan_rate=10.0, pts_per_scan=3000, seed=3, device="cpu")
 
 
-def test_pipeline_scan_batch_matches_unbatched_lio(lio_seq):
-    runs = {b: drive(lio_seq, load_config(None, {**LIO_SETS, "lio.scan_batch": b})) for b in (1, K_BATCH, 0)}
-    assert runs[1]._batch_eligible is False and runs[K_BATCH]._batch_eligible and runs[0]._batch_eligible
-    assert not runs[0]._pending and not runs[K_BATCH]._pending
-    n = same_runs(runs[K_BATCH], runs[1])
-    assert n == same_runs(runs[0], runs[1]) >= 15
-    assert runs[1].health["rejected"] == 0
-    for b in (K_BATCH, 0):
-        np.testing.assert_array_equal(runs[b].map.counts.numpy(), runs[1].map.counts.numpy())
+def _livo_seq():
+    return TSYN.generate(duration=2.0, imu_rate=100.0, scan_rate=10.0, pts_per_scan=4000, seed=5, n_boxes=0,
+                         camera=Pinhole(*CAM), cam_rate=10.0, cam_offset=0.055, device="cpu")
 
 
-def test_rejected_scans_batch_like_unbatched(lio_seq):
-    """Every update rejected by the health gate (max_jump_m 0): the
-    counters and the (propagated) trajectory agree across modes."""
-    sets = {**LIO_SETS, "lio.max_jump_m": 0.0}
-    one = drive(lio_seq, load_config(None, {**sets, "lio.scan_batch": 1}))
-    for b in (K_BATCH, 0):
-        same_runs(drive(lio_seq, load_config(None, {**sets, "lio.scan_batch": b})), one)
-    assert one.health["rejected"] == len(one.n_effective) >= 15
+@pytest.mark.parametrize("make_seq, sets", [(_lio_seq, LIO_SETS), (_livo_seq, LIVO_SETS)], ids=["lio", "livo"])
+def test_rejected_scans_roll_back_the_cloud(make_seq, sets):
+    """After N_ACCEPTED accepted updates the health gate's max_jump_m drops
+    to 0, so every later scan is rejected: the counters count each one, and
+    after each the world cloud (the one every later VIO frame reads) is the
+    last accepted scan's, whose mask is not empty (a rejected scan's own
+    cloud is masked off)."""
+    seen = {"kept": None, "scans": 0, "frames": 0}
 
+    def before_update(pipe, is_scan):
+        kept = seen["kept"]
+        if kept is not None:
+            assert torch.equal(pipe.world_cloud, kept[0]) and torch.equal(pipe.world_mask, kept[1])
+            seen["scans" if is_scan else "frames"] += 1
+        elif is_scan and len(pipe.n_effective) == N_ACCEPTED:
+            assert pipe.health["rejected"] == 0 and pipe.world_mask.any()
+            seen["kept"] = (pipe.world_cloud.clone(), pipe.world_mask.clone())
+            pipe.step_cfg = dataclasses.replace(
+                pipe.step_cfg, lio_cfg=dataclasses.replace(pipe.step_cfg.lio_cfg, max_jump_m=0.0)
+            )
 
-CAM = (320, 256, 200.0, 200.0, 160.0, 128.0)
-
-
-def test_pipeline_scan_batch_matches_unbatched_livo():
-    seq = TSYN.generate(duration=2.0, imu_rate=100.0, scan_rate=10.0, pts_per_scan=4000, seed=5, n_boxes=0,
-                        camera=Pinhole(*CAM), cam_rate=10.0, cam_offset=0.055, device="cpu")
-    rcl = tuple(TSYN.R_IC_FORWARD.T.reshape(-1).tolist())
-    sets = {"lio.max_points": 4096, "map.capacity": 1 << 14, "imu.imu_int_frame": 32, "vio.img_enable": True,
-            "vio.max_visual_points": 4096, "vio.max_obs_per_point": 4,
-            "camera.width": CAM[0], "camera.height": CAM[1], "camera.fx": CAM[2], "camera.fy": CAM[3],
-            "camera.cx": CAM[4], "camera.cy": CAM[5], "camera.rcl": rcl, "camera.pcl": (0.0, 0.0, 0.0),
-            "extrinsics.extrinsic_t": (0.0, 0.0, 0.0)}
-    runs = {b: drive(seq, load_config(None, {**sets, "lio.scan_batch": b})) for b in (1, K_BATCH, 0)}
-    n = same_runs(runs[K_BATCH], runs[1])
-    assert n == same_runs(runs[0], runs[1]) >= 20
-    assert max(runs[1].n_selected) > 0 and len(runs[1].n_selected) > 10
-    np.testing.assert_array_equal(runs[0].visual_map.pos.numpy(), runs[1].visual_map.pos.numpy())
-
-
-def test_gnss_keeps_per_scan_fetches():
-    """The GNSS block is linearized at each scan's prior on the host, so
-    GNSS turns batching off, as in the JAX package."""
-    cfg = load_config(None, {**LIO_SETS, "lio.scan_batch": K_BATCH, "gnss.gnss_en": True})
-    pipe = LivoPipeline(cfg, device="cpu")
-    assert pipe.scan_batch == K_BATCH and not pipe._batch_eligible
-
-
-@pytest.mark.parametrize("batch", [K_BATCH, 0])
-def test_batched_checkpoint_resume(tmp_path, batch):
-    """Checkpointed after 9 scans (mid-batch: the runner flushes first),
-    resumed in a fresh pipeline: the straight batched run's tum.txt bit for
-    bit, which is also the unbatched run's."""
-    cam = (160, 128, 100.0, 100.0, 80.0, 64.0)
-    seq = TSYN.generate(duration=1.6, imu_rate=100.0, pts_per_scan=2500, seed=2, n_boxes=0,
-                        camera=Pinhole(*cam), cam_rate=10.0, cam_offset=0.055, device="cpu")
-    log = str(tmp_path / "seq.flvo")
-    TLOG.write_sequence(log, seq)
-    rcl = tuple(TSYN.R_IC_FORWARD.T.reshape(-1).tolist())
-    sets = {"lio.max_points": 2048, "map.capacity": 1 << 14, "imu.imu_int_frame": 32,
-            "vio.max_visual_points": 1024, "vio.max_obs_per_point": 4, "camera.width": cam[0],
-            "camera.height": cam[1], "camera.fx": cam[2], "camera.fy": cam[3], "camera.cx": cam[4],
-            "camera.cy": cam[5], "camera.rcl": rcl, "camera.pcl": (0.0, 0.0, 0.0),
-            "extrinsics.extrinsic_t": (0.0, 0.0, 0.0)}
-    base = ["--log", log, "--config", os.path.join(REPO, "configs", "avia_livo.yaml"), "--device", "cpu"]
-    for k, v in sets.items():
-        base += ["--set", f"{k}={v!r}"]
-    batched = base + ["--set", f"lio.scan_batch={batch}"]
-    ck = str(tmp_path / "ck.npz")
-    straight = trun.main(batched + ["--out", str(tmp_path / "a")])
-    trun.main(batched + ["--out", str(tmp_path / "b"), "--max-scans", "9", "--checkpoint", ck,
-                         "--checkpoint-every", "9"])
-    resumed = trun.main(batched + ["--out", str(tmp_path / "c"), "--resume", ck])
-    trun.main(base + ["--out", str(tmp_path / "d")])
-
-    assert straight._batch_eligible and len(straight.n_effective) >= 5 and max(straight.n_selected) > 0
-    want = (tmp_path / "a" / "tum.txt").read_bytes()
-    assert (tmp_path / "c" / "tum.txt").read_bytes() == want
-    assert (tmp_path / "d" / "tum.txt").read_bytes() == want
-    assert resumed.health == straight.health and resumed.n_effective == straight.n_effective
-    np.testing.assert_array_equal(resumed.map.counts.numpy(), straight.map.counts.numpy())
+    cfg = load_config(None, sets)
+    pipe = drive(make_seq(), cfg, before_update)
+    before_update(pipe, True)  # the check after the last rejected scan
+    n_rejected = len(pipe.n_effective) - N_ACCEPTED
+    assert seen["kept"] is not None and n_rejected >= 3 and seen["scans"] == n_rejected
+    assert pipe.health["rejected"] == pipe.health["resets"] == n_rejected
+    if cfg.vio.img_enable:
+        assert seen["frames"] >= 3 and max(pipe.n_selected) > 0

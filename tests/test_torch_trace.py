@@ -302,8 +302,8 @@ def camera_log(tmp_path_factory):
     return log
 
 
-def _camera_run(log, traced, **sets):
-    cfg = load_config(os.path.join(REPO, "configs", "avia_livo.yaml"), {**CAM_SETS, **sets})
+def _camera_run(log, traced):
+    cfg = load_config(os.path.join(REPO, "configs", "avia_livo.yaml"), CAM_SETS)
     before = timing.counters()
     if traced:
         timing.enable()
@@ -314,10 +314,9 @@ def _camera_run(log, traced, **sets):
     return pipe, timing.drain(), timing.counter_delta(timing.counters(), before)
 
 
-@pytest.mark.parametrize("scan_batch", [1, 2])
-def test_camera_spans_and_selected_count(camera_log, scan_batch):
-    off, off_trace, off_delta = _camera_run(camera_log, False, **{"lio.scan_batch": scan_batch})
-    on, trace, delta = _camera_run(camera_log, True, **{"lio.scan_batch": scan_batch})
+def test_camera_spans_and_selected_count(camera_log):
+    off, off_trace, off_delta = _camera_run(camera_log, False)
+    on, trace, delta = _camera_run(camera_log, True)
     assert off_trace.spans == [] and trace.dropped == 0
     assert off_delta == delta
     assert len(off.trajectory) == len(on.trajectory)
