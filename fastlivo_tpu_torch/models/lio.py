@@ -6,7 +6,9 @@ point) and surfel (running voxel moments).
 The JAX `lax.while_loop` over iterations, with the neighbor re-search
 under a `lax.cond`, becomes a Python loop that reads the `done` and
 `search_en` flags from the device once per trip (one host read per
-iteration), so the trip count is exactly the JAX one.
+iteration), so the trip count is exactly the JAX one. The loop's body is
+`eskf_trip`; an unsharded update on CUDA tensors replays it as one
+captured CUDA graph a trip (`_GraphedTrips`).
 
 Multi-device: `axis_name` is the `parallel.axis.Axis` the scan points are
 sharded over (each innovation is summed over it before the GNSS extras are
@@ -18,7 +20,7 @@ ranks run the same number of iterations.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -26,7 +28,7 @@ from fastlivo_tpu_torch.maps import voxel_map as vm
 from fastlivo_tpu_torch.models import ieskf
 from fastlivo_tpu_torch.ops import linalg, plane, so3
 from fastlivo_tpu_torch.state import DIM_STATE, NavState, boxminus, boxplus
-from fastlivo_tpu_torch.utils import timing
+from fastlivo_tpu_torch.utils import graphs, timing
 
 _R2D = 57.29577951308232
 
@@ -234,18 +236,20 @@ def surfel_match(
 
 def _innovation_surfel(
     rot, pos, pts_body, pts_mask, surf: vm.SurfelResult, rot_il, t_il, cfg: LioConfig,
-    axis_name=None,
+    axis_name=None, point_cov: torch.Tensor | None = None,
 ):
     """Point-to-surfel innovation: the point-to-plane structure with the
     plane from a cached surfel match and, with surfel_conf_weight, the
-    measurement variance inflated by the surfel's own uncertainty."""
+    measurement variance inflated by the surfel's own uncertainty; without
+    it, the variance is `point_cov`, laser_point_cov as a () tensor that
+    `lio_update` makes once an update."""
     p_imu, p_w = transform_to_world(pts_body, rot, pos, rot_il, t_il)
     pd2, valid = _residual_gate(surf.normal, surf.d, surf.valid, p_w, pts_body, pts_mask, cfg)
     if cfg.surfel_conf_weight:
         min_eig = torch.where(torch.isfinite(surf.min_eig), surf.min_eig, 0.0)
         r_i = cfg.laser_point_cov + min_eig * (1.0 + 3.0 / torch.clamp(surf.n_pts, min=1.0))
     else:
-        r_i = torch.tensor(cfg.laser_point_cov, dtype=pts_body.dtype, device=pts_body.device)
+        r_i = point_cov
     w = valid.to(pts_body.dtype) / r_i
     hth, hty = _plane_sums(surf.normal, pd2, p_imu, rot, valid, w)
     n_eff = torch.sum(valid.to(torch.int32)).to(torch.int32)
@@ -259,6 +263,186 @@ def _embed18(hth6: torch.Tensor, hty6: torch.Tensor, dtype):
     hty = torch.zeros((DIM_STATE,), dtype=dtype, device=hty6.device)
     hty[0:6] = hty6
     return hth, hty
+
+
+class TripScan(NamedTuple):
+    """What every trip of one update reads: the prior and its information,
+    the scan, the extrinsics, the neighbor cache of the last search, and
+    the fixed extras of the model and of the caller (None where absent)."""
+
+    state_prop: NavState
+    p_inv: torch.Tensor  # (18, 18)
+    pts_body: torch.Tensor  # (N, 3)
+    pts_mask: torch.Tensor  # (N,)
+    rot_il: torch.Tensor
+    t_il: torch.Tensor
+    nbr: torch.Tensor  # (N, K, 3); surfel: (N, 2, 3), the packed planes
+    nbr_valid: torch.Tensor  # (N, K); surfel: (N, 1)
+    src_cov: Optional[torch.Tensor]  # (N, 3, 3): VGICP's neighborhood source mode
+    point_cov: Optional[torch.Tensor]  # (): surfel without surfel_conf_weight
+    extra_hth: Optional[torch.Tensor]  # (18, 18), with extra_hty (18,): GNSS
+    extra_hty: Optional[torch.Tensor]
+
+
+class Carry(NamedTuple):
+    """What one trip hands the next: the nominal state iterated on, the
+    gain, the rematch count, the last trip's convergence and innovation
+    summary, and the trip index (a device int32, so no trip bakes in a
+    Python count)."""
+
+    rot: torch.Tensor
+    pos: torch.Tensor
+    vel: torch.Tensor
+    bg: torch.Tensor
+    ba: torch.Tensor
+    grav: torch.Tensor
+    g_mat: torch.Tensor  # (18, 18)
+    rematch_num: torch.Tensor  # () int32
+    converged: torch.Tensor  # () bool
+    n_eff: torch.Tensor  # () int32
+    res_sum: torch.Tensor  # ()
+    it: torch.Tensor  # () int32
+
+
+def _trip_innovation(carry: Carry, scan: TripScan, cfg: LioConfig, axis_name):
+    """The measurement model's innovation at the carry's pose from the
+    cached neighbors (or surfel planes)."""
+    rot, pos = carry.rot, carry.pos
+    if cfg.measurement_model == "surfel":
+        nbr = scan.nbr
+        surf = vm.SurfelResult(
+            normal=nbr[:, 0, :], d=nbr[:, 1, 0], valid=scan.nbr_valid[:, 0],
+            min_eig=nbr[:, 1, 1], n_pts=nbr[:, 1, 2],
+        )
+        return _innovation_surfel(
+            rot, pos, scan.pts_body, scan.pts_mask, surf, scan.rot_il, scan.t_il, cfg, axis_name,
+            scan.point_cov,
+        )
+    if cfg.measurement_model == "vgicp":
+        return _innovation_vgicp(
+            rot, pos, scan.pts_body, scan.pts_mask, scan.nbr, scan.nbr_valid, scan.rot_il, scan.t_il,
+            cfg, axis_name, src_cov=scan.src_cov,
+        )
+    return _innovation(
+        rot, pos, scan.pts_body, scan.pts_mask, scan.nbr, scan.nbr_valid, scan.rot_il, scan.t_il,
+        cfg, axis_name,
+    )
+
+
+def eskf_trip(
+    carry: Carry, scan: TripScan, cfg: LioConfig, axis_name=None
+) -> Tuple[Carry, torch.Tensor]:
+    """One trip of the iterated ESKF (the body of the JAX while_loop): the
+    innovation at `carry`'s pose, one MAP step, the convergence test and
+    the rematch rules. Reads nothing back to the host. Returns the next
+    carry and the device flags (done, want_rematch) as one (2,) bool
+    tensor; the update stops at done and searches again before the next
+    trip at want_rematch."""
+    dtype = scan.pts_body.dtype
+    with timing.span("lio.eskf.innovation"):
+        hth6, hty6, n_eff, res_sum = _trip_innovation(carry, scan, cfg, axis_name)
+    with timing.span("lio.eskf.solve"):
+        hth, hty = _embed18(hth6, hty6, dtype)
+        if scan.extra_hth is not None:
+            hth = hth + scan.extra_hth
+            hty = hty + scan.extra_hty
+
+        cur = NavState(*carry[:6], scan.state_prop.cov)
+        vec = boxminus(scan.state_prop, cur)
+        dx, g_mat = ieskf.map_step(scan.p_inv, hth, hty, vec)
+        new = boxplus(cur, dx)
+        rot_add = torch.linalg.vector_norm(dx[0:3])
+        t_add = torch.linalg.vector_norm(dx[3:6])
+        converged = (rot_add * _R2D < cfg.converge_rot_deg) & (t_add * 100.0 < cfg.converge_trans_cm)
+        it = carry.it
+        want_rematch = converged | ((carry.rematch_num == 0) & (it == cfg.max_iteration - 2))
+        rematch_num = carry.rematch_num + want_rematch.to(torch.int32)
+        done = (rematch_num >= 2) | (it == cfg.max_iteration - 1)
+        out = Carry(*new[:6], g_mat, rematch_num, converged, n_eff, res_sum, it + 1)
+        return out, torch.stack([done, want_rematch])
+
+
+class _EagerTrips:
+    """The trips of an update run op by op: CPU tensors, and every call
+    sharded over an axis (its collectives cannot be captured)."""
+
+    def __init__(self, carry: Carry, scan: TripScan, cfg: LioConfig, axis_name):
+        self.carry, self.scan, self.cfg, self.axis_name = carry, scan, cfg, axis_name
+
+    def rematch(self, nbr: torch.Tensor, nbr_valid: torch.Tensor):
+        self.scan = self.scan._replace(nbr=nbr, nbr_valid=nbr_valid)
+
+    def trip(self):
+        """One trip and its host read: [done, want_rematch]."""
+        self.carry, flags = eskf_trip(self.carry, self.scan, self.cfg, self.axis_name)
+        timing.sync_point("eskf_flags")  # the trip's host read, where the device catches up
+        return flags.tolist()
+
+
+def trip_graph_key(scan: TripScan, cfg: LioConfig):
+    """What a captured trip bakes in: each field of the scan, as the shape
+    and dtype of its tensors or its absence; the device; the
+    configuration."""
+    fields = tuple(
+        None if x is None else tuple((tuple(t.shape), t.dtype) for t in graphs.leaves([x])) for x in scan
+    )
+    return fields, scan.pts_body.device, cfg
+
+
+class _GraphedTrips:
+    """The trips of one `trip_graph_key` as replays of one CUDA graph
+    (CUDA tensors, unsharded calls), `_EagerTrips`' interface. The graph
+    reads and writes one set of static buffers: an update's inputs and
+    first carry are copied in once (`load`), a rematch's neighbors over
+    the cached ones, and each replay ends by copying its carry over the one
+    it read, so replays chain. The graph is captured at the key's first
+    trip, after one warm-up trip on a side stream (`graphs.capture`). The
+    kernel launches recorded into it are counted at each replay. One update
+    at a time: updates of one key share the buffers."""
+
+    def __init__(self, carry: Carry, scan: TripScan, cfg: LioConfig):
+        self.carry, self.scan = graphs.empty_like(carry), graphs.empty_like(scan)
+        self.cfg = cfg
+        self.graph = self.flags = self.launches = None
+        self.side = torch.cuda.Stream(scan.pts_body.device)
+
+    def load(self, carry: Carry, scan: TripScan):
+        graphs.copy_into((self.carry, self.scan), (carry, scan))
+
+    def rematch(self, nbr: torch.Tensor, nbr_valid: torch.Tensor):
+        self.scan.nbr.copy_(nbr)
+        self.scan.nbr_valid.copy_(nbr_valid)
+
+    def trip(self):
+        """One replay and its host read: [done, want_rematch]."""
+        if self.graph is None:
+            self.graph, self.flags, self.launches = graphs.capture(
+                lambda: eskf_trip(self.carry, self.scan, self.cfg), self.carry, self.side
+            )
+            timing.count("lio.eskf.graph_captures")
+        with timing.span("lio.eskf.trip"):
+            self.graph.replay()
+            timing.count("lio.eskf.graph_replays")
+            for k, n in self.launches.items():
+                timing.count(k, n)
+            timing.sync_point("eskf_flags")
+            return self.flags.tolist()
+
+
+# trip_graph_key -> _GraphedTrips (as vio._TRIP_GRAPHS); a run meets one
+# key, its scan's point budget.
+_TRIP_GRAPHS = {}
+
+
+def _graphed_trips(carry: Carry, scan: TripScan, cfg: LioConfig) -> _GraphedTrips:
+    """The cached graph of the scan's key (made at its first trip), loaded
+    with the update's inputs."""
+    key = trip_graph_key(scan, cfg)
+    trips = _TRIP_GRAPHS.get(key)
+    if trips is None:
+        trips = _TRIP_GRAPHS[key] = _GraphedTrips(carry, scan, cfg)
+    trips.load(carry, scan)
+    return trips
 
 
 def lio_update(
@@ -280,6 +464,11 @@ def lio_update(
     reused by the map-insert gate, or for the surfel model the matched
     planes packed as nbr[:, 0] = normal, nbr[:, 1] = (d, min_eig, n_pts).
 
+    Each trip is `eskf_trip`: op by op for CPU tensors and for sharded
+    calls, a replay of its key's captured CUDA graph for unsharded CUDA
+    tensors, the same kernels either way. The host keeps the loop, the
+    search on a rematch and one flag read a trip.
+
     axis_name: the `Axis` pts_body is sharded over; the innovations are
     summed over it, before extra_hth/extra_hty are added. map_axis: the
     `Axis` lidar_map is sharded over; pts_body must then be replicated over
@@ -288,9 +477,11 @@ def lio_update(
     dev = pts_body.device
     p_inv = linalg.psd_inverse(state_prop.cov)
     surfel_mode = cfg.measurement_model == "surfel"
-    src_cov = None
+    src_cov = point_cov = None
     if cfg.measurement_model == "vgicp" and cfg.vgicp_source_mode == "neighborhood":
         src_cov = scan_source_covariances(pts_body, pts_mask, cfg)
+    if surfel_mode and not cfg.surfel_conf_weight:
+        point_cov = torch.full((), cfg.laser_point_cov, dtype=dtype, device=dev)
 
     def search(rot, pos):
         timing.count("lio.eskf.searches")
@@ -317,73 +508,43 @@ def lio_update(
             )
         return nbr, nbr_valid & pts_mask[:, None]
 
-    def innovation(rot, pos, nbr, nbr_valid):
-        if surfel_mode:
-            surf = vm.SurfelResult(
-                normal=nbr[:, 0, :], d=nbr[:, 1, 0], valid=nbr_valid[:, 0],
-                min_eig=nbr[:, 1, 1], n_pts=nbr[:, 1, 2],
-            )
-            return _innovation_surfel(
-                rot, pos, pts_body, pts_mask, surf, rot_il, t_il, cfg, axis_name
-            )
-        if cfg.measurement_model == "vgicp":
-            return _innovation_vgicp(
-                rot, pos, pts_body, pts_mask, nbr, nbr_valid, rot_il, t_il, cfg, axis_name,
-                src_cov=src_cov,
-            )
-        return _innovation(
-            rot, pos, pts_body, pts_mask, nbr, nbr_valid, rot_il, t_il, cfg, axis_name
-        )
-
     nbr, nbr_valid = search(state_prop.rot, state_prop.pos)
-    rot, pos, vel = state_prop.rot, state_prop.pos, state_prop.vel
-    bg, ba, grav = state_prop.bg, state_prop.ba, state_prop.grav
-    g_mat = torch.zeros((DIM_STATE, DIM_STATE), dtype=dtype, device=dev)
-    rematch_num = torch.zeros((), dtype=torch.int32, device=dev)
-    converged = torch.zeros((), dtype=torch.bool, device=dev)
-    n_eff = torch.zeros((), dtype=torch.int32, device=dev)
-    res_sum = torch.zeros((), dtype=dtype, device=dev)
+    scan = TripScan(
+        state_prop, p_inv, pts_body, pts_mask, rot_il, t_il, nbr, nbr_valid, src_cov, point_cov,
+        extra_hth, extra_hty,
+    )
+
+    def zero(dt):
+        return torch.zeros((), dtype=dt, device=dev)
+
+    carry = Carry(
+        *state_prop[:6], torch.zeros((DIM_STATE, DIM_STATE), dtype=dtype, device=dev),
+        rematch_num=zero(torch.int32), converged=zero(torch.bool), n_eff=zero(torch.int32),
+        res_sum=zero(dtype), it=zero(torch.int32),
+    )
+    if pts_body.is_cuda and axis_name is None and map_axis is None:
+        trips = _graphed_trips(carry, scan, cfg)
+    else:
+        trips = _EagerTrips(carry, scan, cfg, axis_name)
     search_en = False
-    it = 0
     while True:  # the JAX while_loop: one host read of (done, search_en) per trip
         timing.count("lio.eskf.trips")
         if search_en:
-            nbr, nbr_valid = search(rot, pos)
-        with timing.span("lio.eskf.innovation"):
-            hth6, hty6, n_eff, res_sum = innovation(rot, pos, nbr, nbr_valid)
-        with timing.span("lio.eskf.solve"):
-            hth, hty = _embed18(hth6, hty6, dtype)
-            if extra_hth is not None:
-                hth = hth + extra_hth
-                hty = hty + extra_hty
-
-            cur = NavState(rot, pos, vel, bg, ba, grav, state_prop.cov)
-            vec = boxminus(state_prop, cur)
-            dx, g_mat = ieskf.map_step(p_inv, hth, hty, vec)
-            new = boxplus(cur, dx)
-            rot_add = torch.linalg.vector_norm(dx[0:3])
-            t_add = torch.linalg.vector_norm(dx[3:6])
-            converged = (rot_add * _R2D < cfg.converge_rot_deg) & (
-                t_add * 100.0 < cfg.converge_trans_cm
-            )
-            want_rematch = converged | ((rematch_num == 0) & (it == cfg.max_iteration - 2))
-            rematch_num = rematch_num + want_rematch.to(torch.int32)
-            done = (rematch_num >= 2) | (it == cfg.max_iteration - 1)
-            rot, pos, vel, bg, ba, grav = new.rot, new.pos, new.vel, new.bg, new.ba, new.grav
-            it += 1
-            timing.sync_point("eskf_flags")  # the trip's host read, where the device catches up
-            flags = torch.stack([done, want_rematch]).tolist()
-        if flags[0]:
+            nbr, nbr_valid = search(trips.carry.rot, trips.carry.pos)
+            trips.rematch(nbr, nbr_valid)
+        done, search_en = trips.trip()
+        if done:
             break
-        search_en = flags[1]
 
-    cov = ieskf.posterior_cov(state_prop.cov, g_mat)
-    posterior = NavState(rot, pos, vel, bg, ba, grav, cov)
+    # Copies: a graph's buffers are overwritten by the next update of its key.
+    c = trips.carry
+    cov = ieskf.posterior_cov(state_prop.cov, c.g_mat)
+    posterior = NavState(*(t.clone() for t in c[:6]), cov)
     info = LioInfo(
-        n_effective=n_eff,
-        res_mean=res_sum / torch.clamp(n_eff.to(dtype), min=1.0),
-        iterations=torch.tensor(it, dtype=torch.int32, device=dev),
-        converged=converged,
+        n_effective=c.n_eff.clone(),
+        res_mean=c.res_sum / torch.clamp(c.n_eff.to(dtype), min=1.0),
+        iterations=c.it.clone(),
+        converged=c.converged.clone(),
     )
     return posterior, info, (nbr, nbr_valid)
 

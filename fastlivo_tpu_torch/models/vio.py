@@ -28,7 +28,7 @@ from fastlivo_tpu_torch.ops import linalg, patch_sample, so3
 from fastlivo_tpu_torch.ops import scatter as scatter_ops
 from fastlivo_tpu_torch.ops.camera import Pinhole
 from fastlivo_tpu_torch.state import DIM_STATE, NavState, boxminus, boxplus
-from fastlivo_tpu_torch.utils import timing
+from fastlivo_tpu_torch.utils import graphs, timing
 
 _R2D = 57.29577951308232
 # Padding for window-based patch sampling (see the JAX module: windows are
@@ -426,24 +426,6 @@ def gn_trip(
     return out, (~improved) | converged
 
 
-def _leaves(tree) -> List[torch.Tensor]:
-    """The tensors of nested tuples and lists, in order."""
-    out = []
-    for x in tree:
-        if isinstance(x, torch.Tensor):
-            out.append(x)
-        else:
-            out.extend(_leaves(x))
-    return out
-
-
-def _empty_like(tree):
-    """Uninitialized tensors shaped as the tensors of nested tuples and
-    NamedTuples."""
-    items = [torch.empty_like(x) if isinstance(x, torch.Tensor) else _empty_like(x) for x in tree]
-    return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
-
-
 class _EagerTrips:
     """The trips of a frame run op by op (CPU tensors)."""
 
@@ -464,7 +446,7 @@ def trip_graph_key(frame: TripFrame, pyr, cam: Pinhole, cfg: VioConfig):
     """What a captured trip bakes in: the shape and dtype of every input
     tensor (the frame's and each padded level's), the device, the
     configuration and the camera."""
-    leaves = _leaves((frame, pyr))
+    leaves = graphs.leaves((frame, pyr))
     return tuple((tuple(t.shape), t.dtype) for t in leaves), pyr[0].device, cfg, cam
 
 
@@ -481,17 +463,14 @@ class _GraphedTrips:
     frame at a time: frames of one key share the buffers."""
 
     def __init__(self, carry: Carry, frame: TripFrame, pyr, cam: Pinhole, cfg: VioConfig):
-        self.carry, self.frame = _empty_like(carry), _empty_like(frame)
+        self.carry, self.frame = graphs.empty_like(carry), graphs.empty_like(frame)
         self.pyr = [torch.empty_like(p) for p in pyr]
         self.cam, self.cfg = cam, cfg
         self.graphs, self.stops, self.launches = {}, {}, {}
-        # Warm-ups and captures on one side stream: cuBLAS keeps a
-        # workspace for each stream it meets.
         self.side = torch.cuda.Stream(pyr[0].device)
 
     def load(self, carry: Carry, frame: TripFrame, pyr):
-        for dst, src in zip(_leaves((self.carry, self.frame, self.pyr)), _leaves((carry, frame, pyr))):
-            dst.copy_(src)
+        graphs.copy_into((self.carry, self.frame, self.pyr), (carry, frame, pyr))
 
     def start(self, level: int):
         for dst, src in zip(self.carry.best, self.carry.nav):
@@ -502,22 +481,9 @@ class _GraphedTrips:
         return gn_trip(self.carry, self.frame, self.pyr[level], level, self.cam, self.cfg)
 
     def _capture(self, level: int):
-        main = torch.cuda.current_stream(self.side.device)
-        self.side.wait_stream(main)
-        with torch.cuda.stream(self.side):
-            self._trip(level)
-        main.wait_stream(self.side)
-        graph = torch.cuda.CUDAGraph()
-        # thread_local: another thread's CUDA calls (the loop back end's)
-        # do not break this capture.
-        with timing.graph_counts() as launches, torch.cuda.graph(
-            graph, stream=self.side, capture_error_mode="thread_local"
-        ):
-            carry, stop = self._trip(level)
-            for dst, src in zip(_leaves(self.carry), _leaves(carry)):
-                dst.copy_(src)
+        graph, stop, launches = graphs.capture(lambda: self._trip(level), self.carry, self.side)
         timing.count("vio.graph_captures")
-        self.graphs[level], self.stops[level], self.launches[level] = graph, stop, dict(launches)
+        self.graphs[level], self.stops[level], self.launches[level] = graph, stop, launches
 
     def trip(self, level: int) -> torch.Tensor:
         if level not in self.graphs:

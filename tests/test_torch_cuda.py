@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import chip_smoke
+import eskf_trip_loop
 from fastlivo_tpu_torch.models import imu
 from fastlivo_tpu_torch.ops import image
 from fastlivo_tpu_torch.ops import pallas_windows as pw
@@ -440,3 +441,69 @@ def test_photometric_update_graphs_equal_the_eager_loop(cuda_device):
         assert chip_smoke.same_bits(info.error_before, w0) and chip_smoke.same_bits(info.error_after, w1)
         run.state = post
     assert len(vio._TRIP_GRAPHS) == 1
+
+
+CELL_RAW = 32768  # the room scans' raw points: 16,384 after the 0.15 m downsampling, the cells' budget
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(eskf_trip_loop.CASES))
+def test_lio_update_graphs_equal_the_eager_loop(cuda_device, name):
+    """Every measurement model, both dtypes, the GNSS extras and an exit
+    at max_iteration, on 16,384-point scans: the update through its trip
+    graph equals the eager loop (tests/eskf_trip_loop.py) on the card bit
+    for bit, posterior, LioInfo and neighbor cache, in two updates of
+    other data. The first update after the cache is emptied captures the
+    key's one graph; every trip replays it; the trips, searches and flag
+    reads are the loop's. The neighbor cache an update returns is its own
+    (the next update leaves it as it was)."""
+    from fastlivo_tpu_torch.models import lio
+    from fastlivo_tpu_torch.state import NavState
+
+    dtype, fields, gnss = eskf_trip_loop.CASES[name]
+    cfg = lio.LioConfig(**fields)
+    _, updates = eskf_trip_loop.lio_case(cuda_device, dtype, n_raw=CELL_RAW)
+    lio._TRIP_GRAPHS.clear()
+    kept = None
+    for k, upd in enumerate(updates):
+        args = (*upd["args"], eskf_trip_loop.MAP_CFG, cfg)
+        extras = eskf_trip_loop.gnss_extras(upd["args"][0], upd["truth"]) if gnss else (None, None)
+        (want, want_info, want_nbr), want_n = _counted(lambda: eskf_trip_loop.loop_lio_update(*args, *extras))
+        (got, got_info, got_nbr), got_n = _counted(lambda: lio.lio_update(*args, *extras))
+        torch.cuda.synchronize()
+        for field in NavState._fields:
+            assert chip_smoke.same_bits(getattr(got, field), getattr(want, field)), (k, field)
+        for field in lio.LioInfo._fields:
+            a, b = getattr(got_info, field), getattr(want_info, field)
+            assert chip_smoke.same_bits(a, b) if a.is_floating_point() else torch.equal(a, b), (k, field)
+        assert chip_smoke.same_bits(got_nbr[0], want_nbr[0]) and torch.equal(got_nbr[1], want_nbr[1]), k
+        trips = want_n["lio.eskf.trips"]
+        assert trips == want_n["sync.eskf_flags"] == int(want_info.iterations) >= 2
+        assert int(want_info.n_effective) >= 200, k
+        assert got_n == dict(want_n, **{"lio.eskf.graph_replays": trips},
+                             **({"lio.eskf.graph_captures": 1} if k == 0 else {})), (k, got_n, want_n)
+        if kept is not None:
+            assert chip_smoke.same_bits(kept[0][0], kept[1][0]) and torch.equal(kept[0][1], kept[1][1]), k
+        kept = got_nbr, tuple(t.clone() for t in got_nbr)
+    assert len(lio._TRIP_GRAPHS) == 1
+
+
+@pytest.mark.cuda
+def test_lio_update_extras_are_their_own_graph(cuda_device):
+    """An update with GNSS extras captures a graph of its own beside the
+    one without them, and each replays its own: both equal the eager loop."""
+    from fastlivo_tpu_torch.models import lio
+
+    _, updates = eskf_trip_loop.lio_case(cuda_device, torch.float64, n_raw=CELL_RAW, offsets=eskf_trip_loop.OFFSETS[:1])
+    upd = updates[0]
+    args = (*upd["args"], eskf_trip_loop.MAP_CFG, lio.LioConfig())
+    extras = eskf_trip_loop.gnss_extras(upd["args"][0], upd["truth"])
+    lio._TRIP_GRAPHS.clear()
+    for ex, captures in (((None, None), 1), (extras, 1), ((None, None), 0), (extras, 0)):
+        want, _, _ = eskf_trip_loop.loop_lio_update(*args, *ex)
+        (got, _, _), n = _counted(lambda: lio.lio_update(*args, *ex))
+        for a, b in zip(got, want):
+            assert chip_smoke.same_bits(a, b)
+        assert n.get("lio.eskf.graph_captures", 0) == captures, n
+        assert n["lio.eskf.graph_replays"] == n["lio.eskf.trips"] >= 2
+    assert len(lio._TRIP_GRAPHS) == 2
