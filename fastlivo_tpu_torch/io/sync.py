@@ -164,7 +164,9 @@ class WindowBuilder:
     def build(self, group: LidarMeasureGroup):
         """Returns (ScanInput with NumPy leaves, t_abs_end). Points included:
         for scan-end groups the rest of the sweep, for image-bounded groups
-        the points up to the image time (the cursor advances)."""
+        the points up to the image time (the cursor advances). Counts the
+        group's points (`io.build.points`) and those the budget's stride
+        leaves out (`io.build.points_dropped`)."""
         meas = group.measures[-1]
         if self.last_end_time is None:
             self.last_end_time = group.lidar_beg_time
@@ -206,6 +208,8 @@ class WindowBuilder:
         t_rel = (t_abs[sel] - t0).astype(np.float32)
 
         n = self.n_pts
+        timing.count("io.build.points", len(pts))
+        timing.count("io.build.points_dropped", max(len(pts) - n, 0))
         if len(pts) > n:
             # Budget overflow: a uniform stride keeps temporal coverage.
             idx = np.linspace(0, len(pts) - 1, n).astype(np.int64)

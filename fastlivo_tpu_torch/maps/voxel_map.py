@@ -322,16 +322,29 @@ def _scatter_slot_rows(meta: torch.Tensor, slots: torch.Tensor, rows: torch.Tens
     return set_drop(meta.reshape(c, _W), slots, rows).reshape(b, wide)
 
 
+class InsertCounts(NamedTuple):
+    """What one insert did, as device int32 scalars (no host read)."""
+
+    points_added: torch.Tensor  # points stored into the slabs
+    fresh_voxels: torch.Tensor  # voxels not in the arena that a claim round took a slot for
+    # voxels left without a slot after `claim_rounds`, their points not stored
+    # (a claim may also take the slot of a voxel the scan found mapped)
+    unclaimed_voxels: torch.Tensor
+
+
 def insert(
     m: VoxelHashMap,
     pts: torch.Tensor,
     mask: torch.Tensor,
     cfg: VoxelMapConfig,
     dedup: VoxelDedup | None = None,
-) -> VoxelHashMap:
+    counted: bool = False,
+):
     """Batched map insert: probe, claim rounds (only when some voxel is
-    unmapped), slab scatter from the shared sort's ranks, and segment-sum
-    moment updates — the JAX package's phases and semantics."""
+    unmapped; inside the span `map.claim`), slab scatter from the shared
+    sort's ranks, and segment-sum moment updates — the JAX package's
+    phases and semantics. Returns the map, or with `counted` (map,
+    InsertCounts)."""
     n = pts.shape[0]
     dev = pts.device
     c, s = cfg.capacity, cfg.max_points
@@ -359,31 +372,32 @@ def insert(
     meta = m.meta
     timing.sync_point("claim_any")
     if bool(need0.any()):  # host read: the JAX lax.cond
-        fresh_rows = _pack_rows(
-            uvox_f,
-            torch.zeros((u,), dtype=dtype, device=dev) + epoch_f,
-            torch.zeros((u,), dtype=dtype, device=dev),
-            torch.zeros((u, 3), dtype=dtype, device=dev),
-        )
+        with timing.span("map.claim"):
+            fresh_rows = _pack_rows(
+                uvox_f,
+                torch.zeros((u,), dtype=dtype, device=dev) + epoch_f,
+                torch.zeros((u,), dtype=dtype, device=dev),
+                torch.zeros((u, 3), dtype=dtype, device=dev),
+            )
 
-        def claim_round(meta, cand, need):
-            timing.count("map.claim_rounds")
-            claim = torch.full((c,), INT32_MAX, dtype=torch.int32, device=dev)
-            claim = reduce_drop(claim, torch.where(need, cand, c), uids, "amin")
-            winner = need & (claim[cand.long()] == uids)
-            wslot = torch.where(winner, cand, c)
-            return _scatter_slot_rows(meta, wslot, fresh_rows)
+            def claim_round(meta, cand, need):
+                timing.count("map.claim_rounds")
+                claim = torch.full((c,), INT32_MAX, dtype=torch.int32, device=dev)
+                claim = reduce_drop(claim, torch.where(need, cand, c), uids, "amin")
+                winner = need & (claim[cand.long()] == uids)
+                wslot = torch.where(winner, cand, c)
+                return _scatter_slot_rows(meta, wslot, fresh_rows)
 
-        meta = claim_round(meta, pr.cand, need0)
-        round_i = 1
-        need_any = True
-        while need_any and round_i < cfg.claim_rounds:  # the JAX while_loop
-            found, cand = probe(m._replace(meta=meta), uvox, cfg)
-            need = uvalid & (found < 0)
-            meta = claim_round(meta, cand, need)
-            timing.sync_point("claim_any")
-            need_any = bool(need.any())  # host read per trip
-            round_i += 1
+            meta = claim_round(meta, pr.cand, need0)
+            round_i = 1
+            need_any = True
+            while need_any and round_i < cfg.claim_rounds:  # the JAX while_loop
+                found, cand = probe(m._replace(meta=meta), uvox, cfg)
+                need = uvalid & (found < 0)
+                meta = claim_round(meta, cand, need)
+                timing.sync_point("claim_any")
+                need_any = bool(need.any())  # host read per trip
+                round_i += 1
     m1 = m._replace(meta=meta)
 
     pr2 = probe_rows(m1, uvox, cfg)
@@ -449,13 +463,20 @@ def insert(
     meta = _scatter_slot_rows(meta, slot_u, rows)
     surf_s2 = set_drop(surf_s2, slot_u, s2_new)
 
-    return m._replace(
+    out = m._replace(
         meta=meta,
         counts=counts,
         slab=slab,
         slab_stamps=slab_stamps,
         surf_s2=surf_s2,
         epoch=m.epoch + 1,
+    )
+    if not counted:
+        return out
+    return out, InsertCounts(
+        points_added=torch.sum(ok, dtype=torch.int32),
+        fresh_voxels=torch.sum(need0 & has_u, dtype=torch.int32),
+        unclaimed_voxels=torch.sum(uvalid & ~has_u, dtype=torch.int32),
     )
 
 

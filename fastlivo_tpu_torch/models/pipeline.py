@@ -202,11 +202,13 @@ def lio_scan_step(
         )
     with timing.span("lio.downsample"):
         if axis_name is None:
-            ds_pts, ds_mask = voxelize.voxel_downsample(pts_und, scan.mask, cfg.ds_leaf, cfg.ds_capacity)
+            ds_pts, ds_mask, ds_dropped = voxelize.voxel_downsample(
+                pts_und, scan.mask, cfg.ds_leaf, cfg.ds_capacity, counted=True
+            )
         else:
-            ds_pts, ds_mask = voxelize.voxel_downsample(
+            ds_pts, ds_mask, ds_dropped = voxelize.voxel_downsample(
                 axis_name.all_gather(pts_und), axis_name.all_gather(scan.mask), cfg.ds_leaf,
-                cfg.ds_capacity,
+                cfg.ds_capacity, counted=True,
             )
             if query_axis is not None:
                 shard = cfg.ds_capacity // query_axis.size
@@ -220,18 +222,20 @@ def lio_scan_step(
         )
 
     with timing.span("lio.insert"):
-        lidar_map, p_w, ds_mask, jump, accept, posterior = _gate_and_insert(
+        lidar_map, p_w, ds_mask, jump, accept, posterior, counts = _gate_and_insert(
             state_prop, posterior, lidar_map, ds_pts, ds_mask, nbr, nv, rot_il, t_il, cfg,
             map_axis, query_axis,
         )
-    summary = step_summary(posterior, info, jump, accept)
+    summary = step_summary(posterior, info, jump, accept, (ds_dropped, *counts))
     return posterior, lidar_map, info, (p_w, ds_mask), summary
 
 
 def _gate_and_insert(state_prop, posterior, lidar_map, ds_pts, ds_mask, nbr, nv, rot_il, t_il,
                      cfg: StepConfig, map_axis, query_axis):
     """The health gate, then the insert gate and the map insert of the
-    accepted scan: (map, world cloud, its mask, jump, accept, posterior)."""
+    accepted scan: (map, world cloud, its mask, jump, accept, posterior,
+    the insert's `vm.InsertCounts`; a map-sharded arena counts this rank's
+    shard)."""
     jump = torch.linalg.vector_norm(posterior.pos - state_prop.pos)
     finite = torch.all(torch.isfinite(posterior.pos)) & torch.all(torch.isfinite(posterior.cov))
     accept = finite & (jump <= cfg.lio_cfg.max_jump_m)
@@ -244,7 +248,7 @@ def _gate_and_insert(state_prop, posterior, lidar_map, ds_pts, ds_mask, nbr, nv,
         # No kNN cache: gate on the point's own voxel slab. Every rank gates
         # and inserts the whole scan: a replicated map stays identical, and
         # a shard gates against its own voxels (a voxel it does not own
-        # reads as empty, and sharded_insert masks it off).
+        # reads as empty, and the insert masks it off).
         p_w_ins, m_ins = p_w, ds_mask
         if query_axis is not None:
             p_w_ins, m_ins = query_axis.all_gather(p_w), query_axis.all_gather(ds_mask)
@@ -255,10 +259,6 @@ def _gate_and_insert(state_prop, posterior, lidar_map, ds_pts, ds_mask, nbr, nv,
             lidar_map, p_w_ins, m_ins, cfg.map_cfg,
             cfg.lio_cfg.filter_size_map, cfg.lio_cfg.num_match_points, dedup=dd,
         )
-        if map_axis is not None:
-            lidar_map = vm.sharded_insert(lidar_map, p_w_ins, add, cfg.map_cfg, map_axis, dedup=dd)
-        else:
-            lidar_map = vm.insert(lidar_map, p_w_ins, add, cfg.map_cfg, dedup=dd)
     else:
         add = lio.map_insert_gate(p_w, ds_mask, nbr, nv, cfg.lio_cfg.filter_size_map)
         p_w_ins = p_w
@@ -266,11 +266,11 @@ def _gate_and_insert(state_prop, posterior, lidar_map, ds_pts, ds_mask, nbr, nv,
             p_w_ins, add = query_axis.all_gather(p_w), query_axis.all_gather(add)
             if map_axis is not None:
                 p_w, ds_mask = p_w_ins, query_axis.all_gather(ds_mask)
-        if map_axis is not None:
-            lidar_map = vm.sharded_insert(lidar_map, p_w_ins, add, cfg.map_cfg, map_axis)
-        else:
-            lidar_map = vm.insert(lidar_map, p_w_ins, add, cfg.map_cfg)
-    return lidar_map, p_w, ds_mask, jump, accept, posterior
+        dd = None
+    if map_axis is not None:  # as vm.sharded_insert: only this rank's voxels
+        add = add & vm.owned_mask(p_w_ins, cfg.map_cfg.resolution, map_axis)
+    lidar_map, counts = vm.insert(lidar_map, p_w_ins, add, cfg.map_cfg, dedup=dd, counted=True)
+    return lidar_map, p_w, ds_mask, jump, accept, posterior, counts
 
 
 def lio_scan_multi(
@@ -284,7 +284,7 @@ def lio_scan_multi(
 ) -> Tuple[NavState, vm.VoxelHashMap, torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """K scan-end measurement updates chained: `scans` is a ScanInput whose
     leaves carry a leading K axis. Returns (posterior state, map, summaries
-    (K, 11), (world clouds (K, N, 3), masks (K, N))), the results of K
+    (K, 15), (world clouds (K, N, 3), masks (K, N))), the results of K
     sequential `lio_scan_step` calls (the JAX package's scan-batched step;
     `LivoPipeline` calls `lio_scan_step` once per scan)."""
     summaries, clouds, masks = [], [], []
@@ -303,8 +303,17 @@ def lio_scan_multi(
     return state, lidar_map, torch.stack(summaries), (torch.stack(clouds), torch.stack(masks))
 
 
-def step_summary(state_out: NavState, info, jump: torch.Tensor, accept: torch.Tensor) -> torch.Tensor:
-    """[pos(3), quat wxyz(4), n_eff, jump_m, accepted, res_mean]."""
+# The counts that a LIO step's summary carries after its first 11 entries,
+# in order, under the tracer's counter names (`LivoPipeline` adds them up):
+# the voxels the downsample left out, and the insert's `vm.InsertCounts`.
+SUMMARY_COUNTERS = ("lio.downsample.voxels_dropped", "map.points_added", "map.fresh_voxels",
+                    "map.unclaimed_voxels")
+
+
+def step_summary(state_out: NavState, info, jump: torch.Tensor, accept: torch.Tensor,
+                 counts=()) -> torch.Tensor:
+    """[pos(3), quat wxyz(4), n_eff, jump_m, accepted, res_mean], then
+    `counts`, device scalars (`lio_scan_step` passes SUMMARY_COUNTERS')."""
     q = so3.rot_to_quat(state_out.rot)
     dtype = state_out.pos.dtype
     return torch.cat(
@@ -312,7 +321,8 @@ def step_summary(state_out: NavState, info, jump: torch.Tensor, accept: torch.Te
             state_out.pos,
             q,
             torch.stack(
-                [info.n_effective.to(dtype), jump, accept.to(dtype), info.res_mean]
+                [info.n_effective.to(dtype), jump, accept.to(dtype), info.res_mean,
+                 *(x.to(dtype) for x in counts)]
             ),
         ]
     )
@@ -648,6 +658,8 @@ class LivoPipeline:
         self._epoch_stamps.append(t_abs)
         s = self._record(t_abs, summary)
         n_eff, accepted = int(s[7]), bool(s[9] > 0.5)
+        for name, n in zip(SUMMARY_COUNTERS, s[11:]):
+            timing.count(name, int(n))
         self.n_effective.append(n_eff)
         # The health gate ran on the device (a rejected update returned the
         # propagated state and left the map untouched); here the counters

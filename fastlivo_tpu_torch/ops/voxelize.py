@@ -27,10 +27,13 @@ def voxel_downsample(
     mask: torch.Tensor,
     leaf: float,
     out_size: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    counted: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """Centroid voxel-grid filter: the first `out_size` voxels in
     lexicographic voxel order are kept. Returns (out_pts (out_size, 3),
-    out_mask (out_size,))."""
+    out_mask (out_size,)), and with `counted` also the number of occupied
+    voxels past `out_size` that it left out (a device int32 scalar, no
+    host read)."""
     vox = torch.floor(pts / leaf).to(torch.int32)
     vox = torch.where(mask[:, None], vox, _SENTINEL)
 
@@ -58,4 +61,7 @@ def voxel_downsample(
 
     out_mask = cnts > 0
     out_pts = sums / torch.clamp(cnts, min=1.0)[:, None]
-    return torch.where(out_mask[:, None], out_pts, 0.0), out_mask
+    out_pts = torch.where(out_mask[:, None], out_pts, 0.0)
+    if not counted:
+        return out_pts, out_mask
+    return out_pts, out_mask, torch.clamp(torch.sum(is_start, dtype=torch.int32) - out_size, min=0)

@@ -443,7 +443,8 @@ def test_photometric_update_graphs_equal_the_eager_loop(cuda_device):
     assert len(vio._TRIP_GRAPHS) == 1
 
 
-CELL_RAW = 32768  # the room scans' raw points: 16,384 after the 0.15 m downsampling, the cells' budget
+CELL_RAW = 32768  # the room scans' raw points: 16,384 after the 0.15 m downsampling, the rooms' budget
+STREET_RAW = 131072  # 65,536 after it: the street cell's budget (kitti_lio_hdl64)
 
 
 @pytest.mark.cuda
@@ -457,12 +458,36 @@ def test_lio_update_graphs_equal_the_eager_loop(cuda_device, name):
     key's one graph; every trip replays it; the trips, searches and flag
     reads are the loop's. The neighbor cache an update returns is its own
     (the next update leaves it as it was)."""
+    _lio_graphs_equal_the_eager_loop(cuda_device, name, CELL_RAW)
+
+
+@pytest.mark.cuda
+def test_lio_update_graph_at_the_street_budget(cuda_device):
+    """The street cell's update (float32 point-to-plane) on 65,536-point
+    scans, four times the rooms': its own graph key, and the replays equal
+    the eager loop bit for bit, as above."""
+    _lio_graphs_equal_the_eager_loop(cuda_device, "point_to_plane_f32", STREET_RAW)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [1 << 14, 16], ids=["roomy_arena", "arena_too_small"])
+def test_insert_counts_match_a_recount(cuda_device, capacity):
+    """A LIO step's summary carries the insert's points added, fresh and
+    unclaimed voxels, equal to a recount from the arena before and after
+    (tests/test_torch_street_cell.py on the card)."""
+    import test_torch_street_cell
+
+    added, fresh, unclaimed = test_torch_street_cell.check_insert_counts(cuda_device, capacity)
+    assert added > 0 and fresh > 0 and (unclaimed > 0) == (capacity == 16)
+
+
+def _lio_graphs_equal_the_eager_loop(cuda_device, name, n_raw):
     from fastlivo_tpu_torch.models import lio
     from fastlivo_tpu_torch.state import NavState
 
     dtype, fields, gnss = eskf_trip_loop.CASES[name]
     cfg = lio.LioConfig(**fields)
-    _, updates = eskf_trip_loop.lio_case(cuda_device, dtype, n_raw=CELL_RAW)
+    _, updates = eskf_trip_loop.lio_case(cuda_device, dtype, n_raw=n_raw)
     lio._TRIP_GRAPHS.clear()
     kept = None
     for k, upd in enumerate(updates):

@@ -134,7 +134,10 @@ def test_lio_scan_multi_matches_jax_and_sequential():
         st, m, _, (p_w, msk), s = TP.lio_scan_step(st, m, sc, ti3, tz3, tcfg)
         seq.append((s, p_w, msk))
 
-    assert t_sum.shape == (K_BATCH, 11) and clouds.shape == (K_BATCH, 4096, 3) and masks.shape == (K_BATCH, 4096)
+    # The port's summary is JAX's 11 entries and then the downsample's and
+    # the insert's counts (pipeline.SUMMARY_COUNTERS).
+    assert j_sum.shape == (K_BATCH, 11) and t_sum.shape == (K_BATCH, 11 + len(TP.SUMMARY_COUNTERS))
+    assert clouds.shape == (K_BATCH, 4096, 3) and masks.shape == (K_BATCH, 4096)
     for k, (s, p_w, msk) in enumerate(seq):
         assert torch.equal(t_sum[k], s) and torch.equal(clouds[k], p_w) and torch.equal(masks[k], msk)
     for a, b in zip(t_st, st):

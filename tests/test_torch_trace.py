@@ -6,8 +6,9 @@ tests/test_torch_scan_batch.py at smaller widths):
   equal a traced run's bit for bit;
 - (b) on, each LIO update after the warm-up is one `pipeline.process_scan`
   span whose children are the copy in, the step's five phases and the
-  read-back, all of the update's id, each ESKF phase under `lio.eskf` and
-  each `voxel_map.knn` under a `lio.eskf.search`;
+  read-back, all of the update's id, each ESKF phase under `lio.eskf`,
+  each `voxel_map.knn` under a `lio.eskf.search` and the claim rounds, where
+  the insert ran any, in one `map.claim` under `lio.insert`;
 - (c) per update, `lio.eskf.trips` is LioInfo.iterations and
   `lio.eskf.searches` the kNN searches (one plus the re-matches);
 - (d) under torch.profiler with profiler ranges on, the spans are ranges and
@@ -155,10 +156,14 @@ def test_each_lio_update_is_one_span_of_its_phases(runs):
         inner = [spans[k] for k in kids[eskf]]
         assert {c.name for c in inner} == ESKF and all(c.update == u.ordinal for c in inner)
         assert sum(c.name == "lio.eskf.solve" for c in inner) == u.info.iterations
-        assert not kids.get(kids[i][STEP.index("lio.insert")])
+        claims = [spans[k].name for k in kids.get(kids[i][STEP.index("lio.insert")], [])]
+        # The insert's claim rounds, one span round them all, when a voxel is new.
+        assert claims == (["map.claim"] if u.delta.get("map.claim_rounds") else [])
     for i, s in enumerate(spans):
         if s.name == "voxel_map.knn":
             assert spans[s.parent].name == "lio.eskf.search" and s.update == spans[s.parent].update
+        if s.name == "map.claim":  # the warm-up's inserts sit in the update's own span
+            assert spans[s.parent].name in ("lio.insert", "pipeline.process_scan")
         if s.name.startswith("io."):
             assert s.parent == -1 and s.update == -1
         assert s.t0_ns <= s.t1_ns
@@ -183,6 +188,22 @@ def test_eskf_counters_per_update(runs):
         if s.name == "lio.eskf.search":
             per_update[s.update] = per_update.get(s.update, 0) + 1
     assert [per_update[u.ordinal] for u in on_lio] == [u.delta["lio.eskf.searches"] for u in on_lio]
+
+
+def test_summary_counts_add_no_sync(runs):
+    """The downsample's and the insert's counts ride the summary that is
+    read back anyway: a LIO update's host synchronizations are the copy in,
+    one flag read a trip, the insert's claim checks and the read-back, and
+    the counts equal what its summary carried (the builder's are counted on
+    the host)."""
+    (_, updates), _, _, _ = runs
+    for u in _lio(updates):
+        syncs = {k: v for k, v in u.delta.items() if k.startswith("sync.")}
+        assert syncs == {"sync.to_device": 9, "sync.eskf_flags": u.delta["lio.eskf.trips"],
+                         "sync.claim_any": max(u.delta.get("map.claim_rounds", 0), 1), "sync.readback": 1}
+        assert u.delta.get("lio.downsample.voxels_dropped", 0) == u.delta.get("map.unclaimed_voxels", 0) == 0
+        assert u.delta["map.points_added"] > 0
+        assert (u.delta.get("map.fresh_voxels", 0) > 0) == (u.delta.get("map.claim_rounds", 0) > 0)
 
 
 def test_profiler_ranges_nest(seq):
