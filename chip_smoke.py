@@ -555,6 +555,111 @@ def phase_imu(device):
     return rows
 
 
+# The kNN (maps/voxel_map.py): the cells' map (0.5 m voxels, 2^19 slots,
+# 32 points, the 19-voxel stencil) holding three room scans, searched by a
+# fourth at the rooms' budget (16,384 points after the 0.15 m downsample)
+# and the street's (65,536), as the LIO's point-to-plane search (k 5).
+KNN_NS = (16384, 65536)
+KNN_DTYPES = ("float32", "float64")
+
+
+def knn_case(device, n, dtype, seed=0):
+    """(map, queries, cfg) of one kNN search at `n` queries."""
+    import torch
+
+    from fastlivo_tpu_torch.maps import voxel_map as vm
+    from fastlivo_tpu_torch.ops import voxelize
+
+    dt = getattr(torch, dtype)
+    cfg = vm.VoxelMapConfig(lookup_unique_cap=n)
+    scene = Scene(2 * n, 32, seed=seed)
+    ones = torch.ones(2 * n, dtype=torch.bool, device=device)
+
+    def scan():
+        w = torch.as_tensor(scene.room_points(2 * n), dtype=dt).to(device)
+        return voxelize.voxel_downsample(w, ones, 0.15, n)
+
+    m = vm.make_map(cfg, dt, device=device)
+    for _ in range(3):
+        m = vm.insert(m, *scan(), cfg)
+    return m, scan()[0], cfg
+
+
+def knn_bytes(m, q, cfg, k=5):
+    """Least bytes of one search: the queries read and the outputs written
+    once, each bucket row the stencil probes and each slab row and count
+    it finds read once; and the bytes read without reuse (every query's
+    every stencil voxel)."""
+    import torch
+
+    from fastlivo_tpu_torch.maps import voxel_map as vm
+
+    t = q.element_size()
+    offs = torch.tensor(vm.nearby_offsets(cfg.nearby_type), dtype=torch.int32, device=q.device)
+    vox = (vm.voxel_coord(q, cfg.resolution)[None] + offs[:, None]).reshape(-1, 3)
+    found, _ = vm.probe(m, vox, cfg)
+    buckets = torch.cat([vm._hash(vox, cfg.n_buckets), vm._hash2(vox, cfg.n_buckets)])
+    row_b = cfg.probe_depth * 8 * t
+    slab_b = 4 + cfg.max_points * 3 * t
+    n_found = int((found >= 0).sum())
+    least = (q.numel() * t + q.shape[0] * k * (4 * t + 1) + int(torch.unique(buckets).numel()) * row_b
+             + int(torch.unique(found[found >= 0]).numel()) * slab_b)
+    no_reuse = q.numel() * t + q.shape[0] * k * (4 * t + 1) + vox.shape[0] * 2 * row_b + n_found * slab_b
+    return least, no_reuse
+
+
+def profiled_device_ms(fn, calls=3):
+    """Device time per call of `fn` (the kernels torch.profiler records)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sum(e.time_range.end - e.time_range.start for e in dev) * 1e-3 / calls, len(dev) / calls
+
+
+def phase_knn(device):
+    """`maps.voxel_map.knn` (one kernel launch) against `knn_plain` on the
+    card at the rooms' and the street's budgets, float32 and float64: bit
+    for bit, then timed (graphed device time and eager per-call time; the
+    plain path eager and by the profiler), the byte bound, the launches."""
+    import torch
+
+    from fastlivo_tpu_torch.maps import voxel_map as vm
+
+    rows = []
+    for n in KNN_NS:
+        for dtype in KNN_DTYPES:
+            m, q, cfg = knn_case(device, n, dtype)
+            fns = dict(kernel=lambda: vm.knn(m, q, cfg), plain=lambda: vm.knn_plain(m, q, cfg))
+            before = read_launches()["voxel_map.knn"]
+            got = fns["kernel"]()
+            if read_launches()["voxel_map.knn"] != before + 1:
+                raise AssertionError(f"knn {dtype} n={n}: not one launch")
+            want = fns["plain"]()
+            torch.cuda.synchronize()
+            if not all(same_bits(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"knn {dtype} n={n}: the kernel differs from knn_plain")
+            least, no_reuse = knn_bytes(m, q, cfg)
+            row = dict(dtype=dtype, n=n, k=5, offsets=len(vm.nearby_offsets(cfg.nearby_type)),
+                       valid_share=float(got[2].float().mean()), bytes=least, bytes_no_reuse=no_reuse)
+            row["kernel_ms"] = graph_time_ms(fns["kernel"])
+            row["kernel_eager_ms"] = eager_time_ms(fns["kernel"])
+            row["kernel_host_us"] = host_ns(fns["kernel"], iters=200, warmup=20) * 1e-3
+            row["plain_eager_ms"] = eager_time_ms(fns["plain"], iters=10, warmup=2)
+            row["plain_device_ms"], row["plain_kernels"] = profiled_device_ms(fns["plain"])
+            row["bound_ms"] = least / HBM_BYTES_PER_S * 1e3
+            row["bound_no_reuse_ms"] = no_reuse / HBM_BYTES_PER_S * 1e3
+            rows.append(row)
+    return rows
+
+
 # The fused patch sampler's main-path forms (models/vio.py): select reads
 # level 0 without gradients, each update iteration one level with
 # gradients, maintain the stored 12x12 patches of all levels in one launch.
@@ -803,7 +908,7 @@ def phase_patch_sample(device):
     return rows, split
 
 
-KERNELS = ("extract_windows", "imu_propagate", "patch_sample")  # the wrappers' `<kernel>.launches` counters
+KERNELS = ("extract_windows", "imu_propagate", "patch_sample", "voxel_map.knn")  # the wrappers' `<kernel>.launches` counters
 _LAUNCH_BASE = {}  # the counters at the last reset_launches
 
 
@@ -3143,6 +3248,8 @@ def main(argv=None):
                       "native_library": os.path.basename(host_lib._name)}), flush=True)
 
     k1, imu_rows = phase_kernels(device)
+    knn_rows = phase_knn(device)
+    print(json.dumps({"knn": knn_rows, "gpu": ident}), flush=True)
     psr, ps_split = phase_patch_sample(device)
     print(json.dumps({"patch_sample_host_ns": ps_split, "n": PS_SPLIT_N, "gpu": ident}), flush=True)
 
@@ -3262,6 +3369,24 @@ def main(argv=None):
             cov_steps=r["cov_steps"], dependent_fmas=r["dependent_fmas"],
             ms=r["kernel_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by="dependent chain",
             kernel_us=r["kernel_ms"] * 1e3, plain_us=r["plain_ms"] * 1e3, bound_bytes_us=r["bound_ms"] * 1e3,
+            eager_us=dict(kernel=r["kernel_eager_ms"] * 1e3, plain=r["plain_eager_ms"] * 1e3),
+        ))
+    for r in knn_rows:
+        kernels.append(dict(
+            name="voxel_knn", route="cuda",
+            source="fastlivo_tpu_torch/csrc/voxel_knn.cu",
+            replaces="fastlivo_tpu/maps/voxel_map.py:640 (a lax.top_k loop; no Pallas kernel)",
+            launches=livo["launches"]["voxel_map.knn"], on_main_path=True,
+            launches_cli=cli_launches["voxel_map.knn"],
+            launches_5b=gnss_launches["voxel_map.knn"],
+            launches_6a=bag_launches["voxel_map.knn"],
+            launches_7=p7_launches["voxel_map.knn"],
+            launches_8=p8_launches["voxel_map.knn"],
+            dtype=r["dtype"], n=r["n"], k=r["k"], offsets=r["offsets"],
+            ms=r["kernel_ms"], plain_ms=r["plain_eager_ms"], bound_ms=r["bound_ms"], bound_by="bytes",
+            kernel_us=r["kernel_ms"] * 1e3, plain_us=r["plain_eager_ms"] * 1e3,
+            plain_device_us=r["plain_device_ms"] * 1e3, bound_us=r["bound_ms"] * 1e3,
+            bound_no_reuse_us=r["bound_no_reuse_ms"] * 1e3,
             eager_us=dict(kernel=r["kernel_eager_ms"] * 1e3, plain=r["plain_eager_ms"] * 1e3),
         ))
     if args.out:

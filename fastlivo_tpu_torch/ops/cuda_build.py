@@ -29,6 +29,7 @@ SOURCES = {
     "extract_windows": "extract_windows.cu",
     "imu_propagate": "imu_propagate.cu",
     "patch_sample": "patch_sample.cu",
+    "voxel_knn": "voxel_knn.cu",
 }
 
 NVCC_FLAGS = [
