@@ -23,8 +23,9 @@ With `--trace 1` the window is the same, and inside it a few scan cycles
 run under `torch.profiler` and a few more under torch's sync debug mode;
 the per-layer metrics come from those and from the harness's spans.
 
-After the window the program's state is freed and the plain reference
-(`livobench/reference/`, see `check.py`) decides `correct`.
+After the window the program's state is freed and the configuration's
+checks (`check.py`, `livobench/checks/`) hold what they kept of it to the
+plain reference (`livobench/reference/`): they decide `correct`.
 """
 
 from __future__ import annotations
@@ -78,9 +79,12 @@ def forbidden_modules():
 
 class Cell:
     """A workload of BENCHMARK.json with its configuration file, traffic
-    file and metric entries (those that name it, or name no cells)."""
+    file, limits file and metric entries (those that name it, or name no
+    cells), each read from the benchmark's folder under `root`, and the
+    folder of its checks."""
 
     def __init__(self, bench: dict, name: str, root: Path = ROOT):
+        here = root / HERE.relative_to(ROOT)
         works = {w["name"]: w for w in bench["workloads"]}
         if name not in works:
             raise SystemExit(f"livobench: no workload {name!r} in BENCHMARK.json")
@@ -91,8 +95,9 @@ class Cell:
         # The float type the program runs in: the configuration file's
         # `precision`, float32 where it names none.
         self.precision = self.config_file.get("precision", "float32")
-        self.traffic = load_json(HERE / "traffic" / f"{self.workload['traffic']}.json")
-        limits = HERE / "limits" / f"{name}.json"
+        self.traffic = load_json(here / "traffic" / f"{self.workload['traffic']}.json")
+        self.checks_dir = here / "checks"
+        limits = here / "limits" / f"{name}.json"
         self.limits = load_json(limits) if limits.exists() else None
         self.end_to_end = [m for m in bench["end_to_end"] if name in m.get("workloads", [name])]
         reported = {m["name"] for m in self.end_to_end}
@@ -193,8 +198,8 @@ class Replay:
 
 
 def _setup_replay(rep: Replay, pool, keeper, laps: int):
-    """The lead-in and `laps` laps; keeps the program's first LIO update
-    and the VIO update after it for the check."""
+    """The lead-in and `laps` laps; `keeper` (the cell's `check.Checks`)
+    keeps the program's first LIO update and the VIO update after it."""
     end = pool.lap0 + laps * pool.period
     for r in pool.stream():
         if r.stamp >= end - 1e-9:
@@ -230,6 +235,7 @@ class Window:
 
 def run_window(rep: Replay, pool, keeper, seconds: float, traced: bool, cuda: bool):
     """Replay laps from the set-up's end for `seconds`; returns a Window.
+    `keeper` (the cell's `check.Checks`) keeps the checked cycles.
 
     Traced, the instruments switch only as a LIO update is about to run,
     so each holds whole scan cycles (a LIO update and the frames after
@@ -388,16 +394,21 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
         torch.cuda.reset_peak_memory_stats()  # the CUDA context
     t_ctx = time.perf_counter()
     rcfg = reference_config(tree, overrides)
+    keeper = check.Checks(cell.config_file, rcfg, window_times(seed, seconds, int(traffic["check"]["samples"])),
+                          cell.checks_dir)
+    limits = cell.limits or {}
+    if not limits:
+        raise SystemExit(f"livobench: no limits/{cell.name}.json: nothing would decide `correct`")
+    unknown = [n for n in limits if n not in keeper.numbers]
+    if unknown:
+        raise SystemExit(f"livobench: limits/{cell.name}.json names {', '.join(unknown)}, which no check of "
+                         f"the cell returns")
     pool = pool_mod.build_pool(traffic, rcfg, seed, device)
     if cuda:
         torch.cuda.synchronize()
     t_pool = time.perf_counter()
     cfg = program_config(tree, overrides)
     rep = Replay(cfg, device, cell.precision)
-    keeper = check.Keeper(
-        at_s=window_times(seed, seconds, int(traffic["check"]["samples"])),
-        camera=bool(cfg.vio.img_enable),
-    )
     _setup_replay(rep, pool, keeper, pool.setup_laps)
     if keeper.start is None:
         raise RuntimeError("no LIO update ran in set-up")
@@ -441,6 +452,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
         value = reader(m["name"])(rec)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+    keeper.after_window(rep.pipe)
 
     # The check: the program's state goes, the reference comes.
     del rep
@@ -448,14 +460,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
     if cuda:
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    gaps = check.reference_gaps(rcfg, pool, keeper, device, _log)
+    gaps = keeper.gaps(rcfg, tree, pool, device, log=_log)
     _log(f"livobench: the check took {time.perf_counter() - t_check:.3f} s")
-    limits = cell.limits or {}
-    if not limits:
-        raise SystemExit(f"livobench: no limits/{cell.name}.json: nothing would decide `correct`")
-    unknown = [n for n in limits if n not in gaps]
-    if unknown:
-        raise SystemExit(f"livobench: limits/{cell.name}.json names {', '.join(unknown)}, which the check has not")
     for name in sorted(set(gaps) - set(limits)):
         _log(f"livobench: {name} {gaps[name]!r} (read, not compared: no limit holds it; PERF.md)")
     ok, lines = check.judge(gaps, limits)

@@ -13,7 +13,11 @@ configuration runs as it is.
 The lap period is a whole number of sweep, IMU and frame periods, and the
 motion is exactly periodic from the lap's start on, so lap k is lap 0 with
 its stamps shifted by k periods: `Pool.stream` replays lap 0 for ever, and
-any window, at any speed, sees an unbroken stream.
+any window, at any speed, sees an unbroken stream. With the traffic key
+`trajectory.lap_draws` (default 1) the pool holds that many draws of the
+lap, each from the seed and its ordinal, and lap k replays draw k mod
+`lap_draws`: the same stamps, motion and frames, other points and noise,
+so that a revisit does not see the very sweep it saw before.
 
 This is the benchmark's own copy of the port's generator
 (`fastlivo_tpu_torch/io/synthetic.py`: sweeps with true per-point motion
@@ -333,16 +337,22 @@ class Record:
 @dataclass
 class Pool:
     lead: List[Record]  # stamps before lap0
-    lap: List[Record]  # lap 0: stamps in [lap0, lap0 + period)
+    draws: List[List[Record]]  # each draw of lap 0: stamps in [lap0, lap0 + period)
     lap0: float
     period: float
     motion: Motion
     setup_laps: int  # whole laps replayed in set-up, after the lead-in
 
+    @property
+    def lap(self) -> List[Record]:
+        """The first draw of lap 0."""
+        return self.draws[0]
+
     def lap_records(self, k: int) -> Iterator[Record]:
-        """Lap k: lap 0's records, their stamps shifted by k periods."""
+        """Lap k: the records of draw k mod the draws, their stamps shifted
+        by k periods."""
         shift = k * self.period
-        for r in self.lap:
+        for r in self.draws[k % len(self.draws)]:
             yield Record(r.kind, r.stamp + shift, r.data)
 
     def stream(self, first_lap: int = 0, with_lead: bool = True) -> Iterator[Record]:
@@ -371,11 +381,17 @@ def _rig(cfg):
     return r_il, t_il, r_cl, p_cl
 
 
+def _draw_seed(seed: int, draw: int) -> int:
+    """The torch generator's seed of lap draw `draw` (> 0) of `seed`."""
+    return int(np.random.SeedSequence([int(seed), int(draw)]).generate_state(1, np.uint64)[0])
+
+
 def build_pool(traffic: dict, cfg, seed: int, device) -> Pool:
     """The lead-in and lap 0 of `traffic` for the rig and reader rule of
     `cfg` (the reference's `params.read`), drawn from `seed`; heavy draws
     on `device`. Every seed gives the same sizes, times and motion; the
-    seed draws the points, the noise and nothing else."""
+    seed draws the points, the noise and nothing else. Draw d > 0 of lap 0
+    (`trajectory.lap_draws`) draws its points and noise from (seed, d)."""
     dev = torch.device(device)
     motion = Motion(traffic["trajectory"])
     scene = make_scene(traffic["scene"], motion)
@@ -393,21 +409,27 @@ def build_pool(traffic: dict, cfg, seed: int, device) -> Pool:
     rng = np.random.default_rng(int(seed))
     r_il, t_il, r_cl, p_cl = _rig(cfg)
     records: List[Record] = []
+    n_draws = int(traffic["trajectory"].get("lap_draws", 1))
+    if n_draws < 1:
+        raise ValueError(f"trajectory.lap_draws is {n_draws}: at least one draw of the lap")
 
-    # IMU: exact body rate and specific force, plus white noise.
-    t = np.arange(_whole(end, imu_dt, "the pool")) * imu_dt
-    _, _, acc_w, yaw, yaw_rate = motion.kinematics(t)
-    c, s = np.cos(yaw), np.sin(yaw)
-    f_w = acc_w - np.array([0.0, 0.0, -GRAVITY])
-    f_b = np.stack([c * f_w[:, 0] + s * f_w[:, 1], -s * f_w[:, 0] + c * f_w[:, 1], f_w[:, 2]], -1)
-    gyr = np.stack([np.zeros_like(yaw_rate), np.zeros_like(yaw_rate), yaw_rate], -1)
-    gyr = gyr + rng.normal(0.0, imu_s["gyr_noise"], gyr.shape)
-    acc = f_b + rng.normal(0.0, imu_s["acc_noise"], f_b.shape)
-    # The lead-in's rest is exactly at rest (a clean static initialization).
-    still = t < motion.rest_s
-    gyr[still] = 0.0
-    acc[still] = [0.0, 0.0, GRAVITY]
-    records += [Record(IMU, float(ti), (g, a)) for ti, g, a in zip(t, gyr, acc)]
+    def imu_records(t, rng):
+        """Exact body rate and specific force at times t, plus white noise."""
+        _, _, acc_w, yaw, yaw_rate = motion.kinematics(t)
+        c, s = np.cos(yaw), np.sin(yaw)
+        f_w = acc_w - np.array([0.0, 0.0, -GRAVITY])
+        f_b = np.stack([c * f_w[:, 0] + s * f_w[:, 1], -s * f_w[:, 0] + c * f_w[:, 1], f_w[:, 2]], -1)
+        gyr = np.stack([np.zeros_like(yaw_rate), np.zeros_like(yaw_rate), yaw_rate], -1)
+        gyr = gyr + rng.normal(0.0, imu_s["gyr_noise"], gyr.shape)
+        acc = f_b + rng.normal(0.0, imu_s["acc_noise"], f_b.shape)
+        # The lead-in's rest is exactly at rest (a clean static initialization).
+        still = t < motion.rest_s
+        gyr[still] = 0.0
+        acc[still] = [0.0, 0.0, GRAVITY]
+        return [Record(IMU, float(ti), (g, a)) for ti, g, a in zip(t, gyr, acc)]
+
+    t_imu = np.arange(_whole(end, imu_dt, "the pool")) * imu_dt
+    records += imu_records(t_imu, rng)
 
     # LiDAR sweeps, drawn on the device a chunk of sweeps at a time.
     n_sweeps = _whole(end, sweep, "the pool")
@@ -420,32 +442,39 @@ def build_pool(traffic: dict, cfg, seed: int, device) -> Pool:
     rot_b = torch.as_tensor(rot_b, device=dev).reshape(n_sweeps, nb, 3, 3)
     pos_b = torch.as_tensor(pos_b, device=dev).reshape(n_sweeps, nb, 3)
     _, mids = motion.pose((np.arange(n_sweeps) + 0.5) * sweep)
-    for c0 in range(0, n_sweeps, SWEEP_CHUNK):
-        ks = np.arange(c0, min(c0 + SWEEP_CHUNK, n_sweeps))
-        world = torch.stack([
-            scene.sample(gen, n_pts, mids[k, :2], dev)[torch.randperm(n_pts, generator=gen, device=dev)]
-            for k in ks
-        ])
-        offs, _ = torch.sort(
-            torch.rand((len(ks), n_pts), generator=gen, device=dev, dtype=torch.float64) * sweep, dim=1
-        )
-        buckets = torch.clamp((offs / sweep * nb).long(), max=nb - 1)
-        rows = torch.as_tensor(ks, device=dev)[:, None]
-        p_imu = torch.einsum("knji,knj->kni", rot_b[rows, buckets], world - pos_b[rows, buckets])
-        p_l = (p_imu - t_il_t) @ rot_il_t  # R_il^T (p_imu - t_il)
-        if noise:
-            ray = p_l / torch.linalg.vector_norm(p_l, dim=-1, keepdim=True).clamp(min=1e-9)
-            p_l = p_l + ray * noise * torch.randn(
-                (len(ks), n_pts, 1), generator=gen, device=dev, dtype=torch.float64
+
+    def sweep_records(first: int, gen):
+        """Sweeps first, first + 1, ... of the pool, drawn from `gen`."""
+        out = []
+        for c0 in range(first, n_sweeps, SWEEP_CHUNK):
+            ks = np.arange(c0, min(c0 + SWEEP_CHUNK, n_sweeps))
+            world = torch.stack([
+                scene.sample(gen, n_pts, mids[k, :2], dev)[torch.randperm(n_pts, generator=gen, device=dev)]
+                for k in ks
+            ])
+            offs, _ = torch.sort(
+                torch.rand((len(ks), n_pts), generator=gen, device=dev, dtype=torch.float64) * sweep, dim=1
             )
-        pts = p_l.float()
-        keep = reader_keep(pts, cfg.preprocess.point_filter_num, cfg.preprocess.blind,
-                           cfg.preprocess.max_range)
-        counts = keep.sum(1).tolist()
-        kept = torch.split(pts[keep].cpu(), counts)
-        kept_ms = torch.split((offs * 1e3).float()[keep].cpu(), counts)
-        for k, x, t_ms in zip(ks, kept, kept_ms):
-            records.append(Record(LIDAR, float(k * sweep), (x.numpy(), t_ms.numpy())))
+            buckets = torch.clamp((offs / sweep * nb).long(), max=nb - 1)
+            rows = torch.as_tensor(ks, device=dev)[:, None]
+            p_imu = torch.einsum("knji,knj->kni", rot_b[rows, buckets], world - pos_b[rows, buckets])
+            p_l = (p_imu - t_il_t) @ rot_il_t  # R_il^T (p_imu - t_il)
+            if noise:
+                ray = p_l / torch.linalg.vector_norm(p_l, dim=-1, keepdim=True).clamp(min=1e-9)
+                p_l = p_l + ray * noise * torch.randn(
+                    (len(ks), n_pts, 1), generator=gen, device=dev, dtype=torch.float64
+                )
+            pts = p_l.float()
+            keep = reader_keep(pts, cfg.preprocess.point_filter_num, cfg.preprocess.blind,
+                               cfg.preprocess.max_range)
+            counts = keep.sum(1).tolist()
+            kept = torch.split(pts[keep].cpu(), counts)
+            kept_ms = torch.split((offs * 1e3).float()[keep].cpu(), counts)
+            for k, x, t_ms in zip(ks, kept, kept_ms):
+                out.append(Record(LIDAR, float(k * sweep), (x.numpy(), t_ms.numpy())))
+        return out
+
+    records += sweep_records(0, gen)
 
     # Camera frames of the room at their true times; stamped as the rig
     # stamps them (the synchronizer adds delta_time back).
@@ -472,13 +501,25 @@ def build_pool(traffic: dict, cfg, seed: int, device) -> Pool:
             img = torch.clamp(torch.round(img), 0, 255).cpu().numpy().astype(np.float32)
             records.append(Record(IMG, float(ti - dt), (img,)))
 
+    def in_lap(r):
+        return motion.lap0 - 1e-9 <= r.stamp < end - 1e-9
+
     records.sort(key=lambda r: (r.stamp, _KIND_ORDER[r.kind]))
     lead = [r for r in records if r.stamp < motion.lap0 - 1e-9]
-    lap = [r for r in records if motion.lap0 - 1e-9 <= r.stamp < end - 1e-9]
+    lap = [r for r in records if in_lap(r)]
     # Lap 0 lies where the motion is periodic (a frame's true time is its
     # stamp plus delta_time), so lap k is lap 0 shifted.
     dt = cfg.vio.delta_time if cam_s else 0.0
     if any((r.stamp + (dt if r.kind == IMG else 0.0)) < motion.lap0 - 1e-9 for r in lap):
         raise ValueError("a frame of lap 0 was taken before the lap's start")
-    return Pool(lead=lead, lap=lap, lap0=motion.lap0, period=motion.lap_s, motion=motion,
+    draws = [lap]
+    frames = [r for r in lap if r.kind == IMG]
+    first_sweep = _whole(motion.lap0, sweep, "the lap's start")
+    for d in range(1, n_draws):
+        gen.manual_seed(_draw_seed(seed, d))
+        again = (imu_records(t_imu[t_imu >= motion.lap0 - 1e-9], np.random.default_rng([int(seed), d]))
+                 + sweep_records(first_sweep, gen) + frames)
+        again.sort(key=lambda r: (r.stamp, _KIND_ORDER[r.kind]))
+        draws.append([r for r in again if in_lap(r)])
+    return Pool(lead=lead, draws=draws, lap0=motion.lap0, period=motion.lap_s, motion=motion,
                 setup_laps=int(traffic["trajectory"]["setup_laps"]))

@@ -49,6 +49,7 @@ import torch
 from livobench.reference import arith as A
 
 R2D = 180.0 / np.pi
+MODELS = ("point_to_plane",)  # the LIO measurement models written here
 OFF = 1 << 20  # voxel coordinates are coded as three 21-bit fields
 
 
@@ -279,6 +280,8 @@ def update(ar: A.Arith, prior: State, pts: torch.Tensor, pmap: PointMap, r_il, t
     (posterior, accepted, last neighbours, their validity, (trips, points
     in the last trip's residuals))."""
     lio, mp = p.lio, p.map
+    if lio.measurement_model not in MODELS:
+        raise ValueError(f"the reference's LIO implements {', '.join(MODELS)}, not {lio.measurement_model!r}")
     dev = pts.device
     p_inv = torch.linalg.inv(prior.cov)
     p_imu = ar.mm(pts, r_il.T) + t_il

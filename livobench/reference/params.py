@@ -4,6 +4,13 @@ A configuration file (`livobench/configs/<name>.json`) holds the shipped
 YAML's tree; every value it does not name is the configuration's default,
 listed here. `read(tree, overrides)` returns them as `section.field`
 namespaces; the dotted overrides are for the CPU tests' small sizes.
+
+Only what the reference implements is read: `lio.measurement_model` is
+kept, and `reference/lio.py` implements the models in its `MODELS` (one:
+`point_to_plane`) and refuses the others. Sections the reference has no
+part of (`std`, `gnss`, `lightglue`) are not read here: a configuration
+that turns them on names a check that holds them (`livobench/check.py`,
+`mechanisms`), or the run stops.
 """
 
 from __future__ import annotations

@@ -40,11 +40,15 @@ def gram_esti_plane(neighbors, neighbor_valid, threshold=0.1):
 def test_the_float32_room_follows_the_reference_and_tf32_does_not():
     c = small.cell(small.ROOM)
     assert c.precision == "float32"
-    sound, ctrl = control.readings(c, SEED, 8.0, "cpu", overrides=small.SMALL["avia_livo"],
-                                   traffic=small.small_traffic(c))
+    got = control.readings(c, SEED, 8.0, "cpu", overrides=small.SMALL["avia_livo"], traffic=small.small_traffic(c))
+    sound, ctrl = got["sound"], got["control"]
     assert check.judge(sound, BOUNDS)[0], sound
     failed = {n for n, _, _, good in check.judge(ctrl, BOUNDS)[1] if not good}
     assert {"lio_pos_gap_m", "map_gap_m", "patch_gap"} <= failed, ctrl
+    # The cell's own limits: each VIO number compared as the largest and as the median over the updates.
+    assert check.judge(sound, c.limits)[0], sound
+    failed = {n for n, _, _, good in check.judge(ctrl, c.limits)[1] if not good}
+    assert {"lio_pos_gap_m", "patch_gap", "patch_gap_median"} <= failed, ctrl
 
 
 def test_the_raw_gram_fit_is_found_out(monkeypatch):

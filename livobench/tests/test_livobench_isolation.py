@@ -44,7 +44,7 @@ def test_sources_import_neither_jax_nor_the_repos_scripts():
         names = set(_imports(path))
         assert not names & FORBIDDEN, path
         assert not names & REPO_SCRIPTS, path
-        if "reference" in path.parts or path.name in ("pool.py", "render.py", "stats.py"):
+        if {"reference", "checks"} & set(path.relative_to(HERE).parts) or path.name in ("pool.py", "render.py", "stats.py"):
             assert "fastlivo_tpu_torch" not in names, path
 
 
@@ -52,7 +52,8 @@ def test_the_runner_and_the_port_load_no_jax():
     loaded = _loaded(
         "import livobench.harness as h, livobench.check, livobench.control, livobench.profiling\n"
         "import fastlivo_tpu_torch.models.pipeline, fastlivo_tpu_torch.io.sync\n"
-        "for m in h.load_json(h.ROOT / 'BENCHMARK.json')['per_layer']: h.reader(m['name'])"
+        "for m in h.load_json(h.ROOT / 'BENCHMARK.json')['per_layer']: h.reader(m['name'])\n"
+        "for p in (h.HERE / 'checks').glob('*.py'): livobench.check.load(p.stem)"
     )
     assert "fastlivo_tpu_torch" in loaded and not loaded & FORBIDDEN
 

@@ -40,7 +40,7 @@ def _vio_gaps(seconds=8.0):
     """The held-out camera room's numbers at the small size, each read
     against an infinite limit."""
     c = small.cell(small.ROOM)
-    c.limits = dict.fromkeys(check.LIO_NUMBERS + check.VIO_NUMBERS, math.inf)
+    c.limits = dict.fromkeys(check.load("lio").NUMBERS + check.load("vio").NUMBERS, math.inf)
     _, lines = harness.run_cell(c, 2147483659, seconds, False, "cpu", 0.0,
                                 overrides=small.SMALL["avia_livo"], traffic=small.small_traffic(c))
     return {n: v for n, v, _, _ in lines}

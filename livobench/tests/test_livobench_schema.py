@@ -1,5 +1,6 @@
 """BENCHMARK.json against the benchmark's contract, and the files it names."""
 
+import copy
 import json
 import re
 
@@ -138,8 +139,9 @@ def test_each_name_has_its_files():
     for w in BENCH["workloads"]:
         assert (harness.HERE / "traffic" / f"{w['traffic']}.json").is_file()
         limits = json.loads((harness.HERE / "limits" / f"{w['name']}.json").read_text())
-        camera = json.loads((ROOT / configs[w["config"]]["file"]).read_text())["config"]["img_enable"]
-        assert limits and set(limits) <= set(check.LIO_NUMBERS + (check.VIO_NUMBERS if camera else ()))
+        conf = json.loads((ROOT / configs[w["config"]]["file"]).read_text())
+        checks = check.Checks(conf, harness.reference_config(conf["config"], {}), [])
+        assert limits and set(limits) <= set(checks.numbers)
     for m in BENCH["end_to_end"] + BENCH["per_layer"]:
         assert callable(harness.reader(m["name"]))
     for p in (ROOT / "livobench").rglob("*"):
@@ -151,11 +153,19 @@ def test_each_name_has_its_files():
 @pytest.mark.parametrize("path", sorted((harness.HERE / "configs").glob("*.json")), ids=lambda p: p.stem)
 def test_configurations_are_the_shipped_files(path):
     """Each file holds the shipped YAML, but for the keys it lists as
-    changed; BENCHMARK.json lists the same."""
+    changed and the sizes it lists as assumed (`section.key`: values the
+    YAML leaves to the program, not cuts); BENCHMARK.json lists the same."""
     data = json.loads(path.read_text())
     shipped = read_yaml(ROOT / data["shipped_as"])
-    assert set(data["config"]) == set(shipped)
-    assert {k for k in shipped if data["config"][k] != shipped[k]} == set(data["reduced"])
+    config = copy.deepcopy(data["config"])
+    for dotted in data["assumed"]:
+        *sections, key = dotted.split(".")
+        where = config
+        for section in sections:
+            where = where[section]
+        del where[key]
+    assert set(config) == set(shipped)
+    assert {k for k in shipped if config[k] != shipped[k]} == set(data["reduced"])
     assert data["precision"] in ("float32", "float64") if "precision" in data else True
     for c in BENCH["configs"]:
         if c["file"] == str(path.relative_to(ROOT)):
